@@ -1,0 +1,129 @@
+"""Command-line renderer.
+
+Port of ``pathtracer_tpu/cli.py``:
+
+    python -m pathtracer_tpu_torch.cli scene_files/final/cornell_box_full_lighting.ini \
+        --scene-root /path/to/reference --out out.png
+
+The INI's ``output`` path is written when ``--out`` is not given. ``--device``
+picks the torch device (default ``cuda``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="PyTorch/CUDA path tracer")
+    p.add_argument("ini", help="render config (.ini)")
+    p.add_argument("--scene-root", default=None, help="root for /scene_assets refs")
+    p.add_argument("--out", default=None, help="output PNG (default: INI output)")
+    p.add_argument("--spp", type=int, default=None, help="override samplesPerPixel")
+    p.add_argument("--size", type=int, default=None, help="override square resolution")
+    p.add_argument(
+        "--intersector",
+        default="auto",
+        choices=(
+            "auto", "brute", "small_pallas", "shortlist",
+            "shortlist_pallas", "bvh", "pallas", "cluster",
+        ),
+        help="auto = the CUDA small-scene kernel for <= 256 triangles on a "
+        "CUDA device, else the plain brute sweep; shortlist, shortlist_pallas, "
+        "bvh, pallas and cluster are not ported yet and raise",
+    )
+    p.add_argument(
+        "--seed", type=int, default=0,
+        help="RNG stream seed (0 = the goldens' stream)",
+    )
+    p.add_argument("--tonemap", default="reference")
+    p.add_argument(
+        "--scheduler", default="regen", choices=("regen", "scan"),
+        help="regen = regenerative wavefront pool; scan = fixed-depth wave "
+        "per sample",
+    )
+    p.add_argument(
+        "--light-sampling",
+        default="compat",
+        choices=("compat", "area"),
+        help="compat = reference's count-based light pdf; area = corrected",
+    )
+    p.add_argument(
+        "--shadow-mode",
+        default="fast",
+        choices=("fast", "closest"),
+        help="fast = occlusion test; closest = reference semantics",
+    )
+    p.add_argument(
+        "--glossy-brdf",
+        default="phong",
+        choices=("phong", "beckmann"),
+        help="glossy lobe: reference Phong, or corrected Beckmann microfacet",
+    )
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device to render on (cuda, cuda:N or cpu)",
+    )
+    args = p.parse_args(argv)
+
+    from pathtracer_tpu_torch.models.scene import load_scene
+    from pathtracer_tpu_torch.render import render_image
+    from pathtracer_tpu_torch.utils.image import write_png
+
+    overrides = dict(
+        intersector=args.intersector,
+        scheduler=args.scheduler,
+        shadow_mode=args.shadow_mode,
+        glossy_brdf=args.glossy_brdf,
+        seed=args.seed,
+    )
+    if args.spp is not None:
+        overrides["samples_per_pixel"] = args.spp
+    if args.size is not None:
+        overrides["width"] = args.size
+        overrides["height"] = args.size
+    if args.light_sampling == "area":
+        overrides["compat_count_light_pdf"] = False
+
+    scene, camera, settings, ini = load_scene(
+        args.ini, scene_root=args.scene_root, device=args.device, **overrides
+    )
+    print(
+        f"scene: {ini.scene} | {scene.num_tris} tris "
+        f"({scene.padded_tris} padded), {scene.num_analytic} analytic prims, "
+        f"BVH depth {scene.bvh_depth}"
+    )
+    print(
+        f"render: {settings.width}x{settings.height} @ "
+        f"{settings.samples_per_pixel} spp, rr={settings.rr_prob}, "
+        f"direct_only={settings.direct_lighting_only}"
+    )
+
+    def progress(done, total):
+        if done % max(1, total // 10) == 0 or done == total:
+            print(f"  sample {done}/{total}", file=sys.stderr)
+
+    out = args.out or ini.output or "render.png"
+    out_dir = os.path.dirname(out)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
+    t0 = time.perf_counter()
+    img = render_image(
+        scene, camera, settings, tonemap=args.tonemap, progress_callback=progress
+    )
+    dt = time.perf_counter() - t0
+
+    n_rays = settings.width * settings.height * settings.samples_per_pixel
+    print(f"rendered in {dt:.2f}s ({n_rays / dt / 1e6:.2f} Mpaths/s)")
+
+    write_png(out, img)
+    print(f"wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,310 @@
+"""CPU BVH builder + flattener.
+
+TPU-native replacement for the reference's builder (``src/ts-util/bvh.ts``)
+and packer (``src/packer.ts:83-137``). Deliberate upgrades, per the survey's
+deviation list:
+
+- true binned **SAH** splits (the reference computes SAH then discards it for
+  a balance heuristic, ``bvh.ts:100-102``);
+- triangles are **partitioned** by centroid, never duplicated into both
+  children (the reference filters by AABB overlap and duplicates,
+  ``bvh.ts:136-137`` — the root cause of its "triangles sometimes missing"
+  traversal bug class);
+- leaves own **contiguous ranges of a reordered triangle array**, so device
+  traversal reads `[start, start+count)` from dense SoA instead of chasing
+  offsets inside one packed float blob.
+
+The flattened layout keeps the reference's proven traversal shape
+(child AABBs stored in the parent, left child contiguous in memory, right
+child index backpatched — ``packer.ts:91-128``) but index-based and SoA:
+
+- ``child[n, 0:2]``      : child node index, or -1 if that child is a leaf
+- ``leaf_start/leaf_count[n, 0:2]`` : triangle range when the child is a leaf
+- ``bounds_lo/bounds_hi[n, 0:2, 3]`` : the two child AABBs
+- ``prim_order[T]``      : permutation old->new triangle order
+
+This module is a verbatim copy of ``pathtracer_tpu/models/bvh.py``; only its
+imports point at ``pathtracer_tpu_torch.models``. It is copied, not imported,
+because ``pathtracer_tpu/models/__init__.py`` imports ``models.scene``,
+which imports flax, and the port runs where JAX and flax are absent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+N_BINS = 16
+MAX_LEAF_SIZE = 8
+MAX_DEPTH = 32
+_HUGE = np.float32(3.0e38)
+
+
+@dataclasses.dataclass
+class FlatBVH:
+    child: np.ndarray  # [N, 2] int32 (node index, or -1 = leaf)
+    leaf_start: np.ndarray  # [N, 2] int32
+    leaf_count: np.ndarray  # [N, 2] int32
+    bounds_lo: np.ndarray  # [N, 2, 3] float32
+    bounds_hi: np.ndarray  # [N, 2, 3] float32
+    prim_order: np.ndarray  # [T] int32: prim_order[i] = original tri id at slot i
+    root_lo: np.ndarray  # [3] float32 scene bounds
+    root_hi: np.ndarray  # [3] float32
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.child.shape[0])
+
+    @property
+    def max_leaf_size(self) -> int:
+        return int(self.leaf_count.max()) if self.leaf_count.size else 0
+
+
+class _Builder:
+    def __init__(self, lo: np.ndarray, hi: np.ndarray, max_leaf: int):
+        self.lo = lo
+        self.hi = hi
+        self.centroid = 0.5 * (lo + hi)
+        self.max_leaf = max_leaf
+        # (is_leaf, payload): payload = (start, count) for leaves,
+        # (left_id, right_id, lo0, hi0, lo1, hi1) for internal nodes.
+        self.order: list[np.ndarray] = []
+
+    def build(self, idxs: np.ndarray, depth: int):
+        """Returns ('leaf', start, count) or ('node', list-index)."""
+        n = len(idxs)
+        if n <= self.max_leaf or depth >= MAX_DEPTH:
+            return self._make_leaf(idxs)
+
+        split = self._find_split(idxs)
+        if split is None:
+            # Degenerate centroids: median split by index keeps progress.
+            half = n // 2
+            left_idx, right_idx = idxs[:half], idxs[half:]
+        else:
+            left_idx, right_idx = split
+        return ("node", left_idx, right_idx)
+
+    def _make_leaf(self, idxs: np.ndarray):
+        start = sum(len(o) for o in self.order)
+        self.order.append(idxs)
+        return ("leaf", start, len(idxs))
+
+    def _find_split(self, idxs: np.ndarray):
+        c = self.centroid[idxs]
+        c_lo, c_hi = c.min(axis=0), c.max(axis=0)
+        extent = c_hi - c_lo
+        axis = int(np.argmax(extent))
+        if extent[axis] < 1e-12:
+            return None
+
+        # Binned SAH along the longest centroid axis.
+        scale = N_BINS * (1.0 - 1e-6) / extent[axis]
+        bins = ((c[:, axis] - c_lo[axis]) * scale).astype(np.int32)
+        counts = np.bincount(bins, minlength=N_BINS)
+
+        bin_lo = np.full((N_BINS, 3), np.inf)
+        bin_hi = np.full((N_BINS, 3), -np.inf)
+        for b in range(N_BINS):
+            mask = bins == b
+            if counts[b]:
+                bin_lo[b] = self.lo[idxs[mask]].min(axis=0)
+                bin_hi[b] = self.hi[idxs[mask]].max(axis=0)
+
+        # Prefix/suffix sweeps of bounds + counts.
+        lo_l = np.minimum.accumulate(bin_lo, axis=0)
+        hi_l = np.maximum.accumulate(bin_hi, axis=0)
+        lo_r = np.minimum.accumulate(bin_lo[::-1], axis=0)[::-1]
+        hi_r = np.maximum.accumulate(bin_hi[::-1], axis=0)[::-1]
+        n_l = np.cumsum(counts)
+        n_r = np.cumsum(counts[::-1])[::-1]
+
+        def area(lo, hi):
+            d = np.maximum(hi - lo, 0.0)
+            return 2.0 * (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 0] * d[:, 2])
+
+        # Cost of splitting after bin k (left = bins 0..k, right = k+1..).
+        cost = np.where(
+            (n_l[:-1] > 0) & (n_r[1:] > 0),
+            area(lo_l[:-1], hi_l[:-1]) * n_l[:-1] + area(lo_r[1:], hi_r[1:]) * n_r[1:],
+            np.inf,
+        )
+        k = int(np.argmin(cost))
+        if not np.isfinite(cost[k]):
+            return None
+        left_mask = bins <= k
+        return idxs[left_mask], idxs[~left_mask]
+
+
+def build_bvh_native(
+    tri_lo: np.ndarray, tri_hi: np.ndarray, max_leaf: int = MAX_LEAF_SIZE
+) -> FlatBVH | None:
+    """Binned-SAH build via the C++ builder (native/bvh_builder.cpp).
+
+    Same output contract as the Python builder; returns None when the
+    native library is unavailable (caller falls back).
+    """
+    import ctypes
+
+    from pathtracer_tpu.native import get_lib
+
+    lib = get_lib()
+    if lib is None:
+        return None
+
+    t = int(tri_lo.shape[0])
+    lo = np.ascontiguousarray(tri_lo, dtype=np.float32)
+    hi = np.ascontiguousarray(tri_hi, dtype=np.float32)
+    cap = max(t, 1)
+    child = np.empty((cap, 2), np.int32)
+    leaf_start = np.empty((cap, 2), np.int32)
+    leaf_count = np.empty((cap, 2), np.int32)
+    blo = np.empty((cap, 2, 3), np.float32)
+    bhi = np.empty((cap, 2, 3), np.float32)
+    prim_order = np.empty(t, np.int32)
+
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    n_nodes = lib.pt_build_bvh(
+        lo.ctypes.data_as(f32p),
+        hi.ctypes.data_as(f32p),
+        ctypes.c_int(t),
+        ctypes.c_int(max_leaf),
+        child.ctypes.data_as(i32p),
+        leaf_start.ctypes.data_as(i32p),
+        leaf_count.ctypes.data_as(i32p),
+        blo.ctypes.data_as(f32p),
+        bhi.ctypes.data_as(f32p),
+        prim_order.ctypes.data_as(i32p),
+        ctypes.c_int(cap),
+    )
+    if n_nodes <= 0:
+        return None
+
+    assert sorted(prim_order.tolist()) == list(range(t)), (
+        "native BVH must cover every triangle exactly once"
+    )
+    return FlatBVH(
+        child=child[:n_nodes].copy(),
+        leaf_start=leaf_start[:n_nodes].copy(),
+        leaf_count=leaf_count[:n_nodes].copy(),
+        bounds_lo=blo[:n_nodes].copy(),
+        bounds_hi=bhi[:n_nodes].copy(),
+        prim_order=prim_order,
+        root_lo=lo.min(axis=0),
+        root_hi=hi.max(axis=0),
+    )
+
+
+def build_bvh(
+    tri_lo: np.ndarray,
+    tri_hi: np.ndarray,
+    max_leaf: int = MAX_LEAF_SIZE,
+    use_native: bool = True,
+) -> FlatBVH:
+    """Build + flatten a SAH BVH over triangle AABBs [T, 3]/[T, 3].
+
+    Prefers the native C++ builder (~20-50x the Python one) and falls back
+    transparently; both share the same flattened contract.
+    """
+    t = int(tri_lo.shape[0])
+    if t == 0:
+        raise ValueError("cannot build a BVH over zero primitives")
+    if use_native:
+        bvh = build_bvh_native(tri_lo, tri_hi, max_leaf)
+        if bvh is not None:
+            return bvh
+
+    builder = _Builder(
+        tri_lo.astype(np.float64), tri_hi.astype(np.float64), max_leaf
+    )
+
+    child: list[list[int]] = []
+    leaf_start: list[list[int]] = []
+    leaf_count: list[list[int]] = []
+    bounds_lo: list[np.ndarray] = []
+    bounds_hi: list[np.ndarray] = []
+
+    def node_bounds(idxs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        return builder.lo[idxs].min(axis=0), builder.hi[idxs].max(axis=0)
+
+    def emit(idxs: np.ndarray, depth: int) -> tuple[str, int, int]:
+        """Emit the subtree for ``idxs``; preorder, left-contiguous.
+
+        Returns ("leaf", start, count) or ("node", id, 0).
+        """
+        res = builder.build(idxs, depth)
+        if res[0] == "leaf":
+            return res
+        _, left_idx, right_idx = res
+        node_id = len(child)
+        child.append([-1, -1])
+        leaf_start.append([0, 0])
+        leaf_count.append([0, 0])
+        l_lo, l_hi = node_bounds(left_idx)
+        r_lo, r_hi = node_bounds(right_idx)
+        bounds_lo.append(np.stack([l_lo, r_lo]))
+        bounds_hi.append(np.stack([l_hi, r_hi]))
+
+        for slot, part in ((0, left_idx), (1, right_idx)):
+            kind, a, b = emit(part, depth + 1)
+            if kind == "leaf":
+                leaf_start[node_id][slot] = a
+                leaf_count[node_id][slot] = b
+            else:
+                child[node_id][slot] = a
+        return ("node", node_id, 0)
+
+    import sys
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, 10000))
+    try:
+        all_idx = np.arange(t, dtype=np.int64)
+        root_lo, root_hi = node_bounds(all_idx)
+        kind, a, b = emit(all_idx, 0)
+        if kind == "leaf":
+            # Whole scene fits one leaf: synthesize a root whose left child is
+            # that leaf and whose right child is an empty leaf.
+            child.append([-1, -1])
+            leaf_start.append([a, 0])
+            leaf_count.append([b, 0])
+            bounds_lo.append(np.stack([root_lo, np.full(3, _HUGE)]))
+            bounds_hi.append(np.stack([root_hi, np.full(3, -_HUGE)]))
+    finally:
+        sys.setrecursionlimit(old_limit)
+
+    prim_order = (
+        np.concatenate(builder.order).astype(np.int32)
+        if builder.order
+        else np.arange(t, dtype=np.int32)
+    )
+    assert prim_order.shape[0] == t, "BVH must cover every triangle exactly once"
+    assert len(np.unique(prim_order)) == t, "BVH leaf ranges must not overlap"
+
+    return FlatBVH(
+        child=np.asarray(child, dtype=np.int32).reshape(-1, 2),
+        leaf_start=np.asarray(leaf_start, dtype=np.int32).reshape(-1, 2),
+        leaf_count=np.asarray(leaf_count, dtype=np.int32).reshape(-1, 2),
+        bounds_lo=np.asarray(bounds_lo, dtype=np.float32).reshape(-1, 2, 3),
+        bounds_hi=np.asarray(bounds_hi, dtype=np.float32).reshape(-1, 2, 3),
+        prim_order=prim_order,
+        root_lo=root_lo.astype(np.float32),
+        root_hi=root_hi.astype(np.float32),
+    )
+
+
+def bvh_depth(bvh: FlatBVH) -> int:
+    """Maximum node depth (root = 1); traversal stacks must cover this."""
+
+    depth = np.zeros(bvh.num_nodes, dtype=np.int32)
+    best = 1
+    # Nodes are emitted preorder, so parents precede children.
+    for n in range(bvh.num_nodes):
+        for slot in range(2):
+            c = bvh.child[n, slot]
+            if c >= 0:
+                depth[c] = depth[n] + 1
+                best = max(best, int(depth[c]) + 1)
+    return best

@@ -1,0 +1,166 @@
+"""Small-scene closest-hit and any-hit: the CUDA kernel and its plain version.
+
+Port of ``pathtracer_tpu/ops/intersect_small_pallas.py``. The kernel
+(``csrc/intersect_small.cu``) sweeps every triangle of a scene of at most
+``SMALL_MAX_T8`` (8-rounded) triangles per ray, keeps the nearest with the
+smallest id among equal ``t``, and returns the winner's geometric normal and
+material id; the any-hit variant answers "some triangle before the per-ray
+cutoff" and, when asked, "some triangle at all".
+
+The wrappers take the plain torch version of the same function for tensors on
+the CPU, and launch the kernel for tensors on a CUDA device: a CUDA tensor
+never reaches the plain version. ``launches`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SMALL_MAX_T8 = 256  # largest 8-rounded triangle count the kernel serves
+
+# Kernel launches by entry point; only the wrappers below add to it.
+launches = {"closest": 0, "occluded": 0}
+
+
+def small_table(scene) -> torch.Tensor:
+    """[T8, 16] f32 table: v0.xyz e1.xyz e2.xyz valid id n.xyz mat_id pad.
+
+    Built once per scene and kept in ``scene.cache``.
+    """
+    tab = scene.cache.get("small_table")
+    if tab is None:
+        t8 = max(8, (scene.num_tris + 7) // 8 * 8)
+        if t8 > SMALL_MAX_T8:
+            raise ValueError(
+                f"the small-scene kernel takes at most {SMALL_MAX_T8} "
+                f"triangles (8-rounded); this scene has {t8}"
+            )
+        f32 = torch.float32
+        dev = scene.tri_v0.device
+        tab = torch.cat(
+            [
+                scene.tri_v0[:t8],
+                scene.tri_e1[:t8],
+                scene.tri_e2[:t8],
+                scene.tri_valid[:t8].to(f32)[:, None],
+                torch.arange(t8, dtype=f32, device=dev)[:, None],
+                scene.tri_n[:t8],
+                scene.tri_mat[:t8].to(f32)[:, None],
+                torch.zeros((t8, 1), dtype=f32, device=dev),
+            ],
+            dim=1,
+        ).contiguous()
+        scene.cache["small_table"] = tab
+    return tab
+
+
+def _sweep_plain(tab, o, d):
+    from pathtracer_tpu_torch.ops.intersect import moller_trumbore
+
+    return moller_trumbore(o, d, tab[:, 0:3], tab[:, 3:6], tab[:, 6:9],
+                           tab[:, 9] > 0.5)
+
+
+def closest_tri_small_plain(scene, o, d):
+    """Plain torch version of the closest-hit kernel -> (t [B] f32,
+    tri_id [B] i32, n_geo [B, 3] f32, mat_id [B] i32)."""
+    tab = small_table(scene)
+    t, _ = _sweep_plain(tab, o, d)
+    best_t, best = torch.min(t, dim=1)
+    hit = torch.isfinite(best_t)
+    row = tab[best]
+    tri_id = torch.where(hit, best, -1).to(torch.int32)
+    n_geo = torch.where(hit[:, None], row[:, 11:14], 0.0)
+    mat_id = torch.where(hit, row[:, 14], 0.0).to(torch.int32)
+    return best_t, tri_id, n_geo, mat_id
+
+
+def occluded_tri_small_plain(scene, o, d, t_cut, want_any: bool = False):
+    """Plain torch version of the any-hit kernel -> (occluded [B] bool,
+    hit_any [B] bool, or None unless ``want_any``)."""
+    t, ok = _sweep_plain(small_table(scene), o, d)
+    occ = torch.any(ok & (t < t_cut[:, None]), dim=1)
+    return occ, (torch.any(ok, dim=1) if want_any else None)
+
+
+def _check_rays(scene, *tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, not {dev}")
+    b = tensors[0].shape[0]
+    for x in tensors:
+        if x.device != dev or scene.tri_v0.device != dev:
+            raise ValueError("rays and scene must lie on one CUDA device")
+        if x.dtype != torch.float32:
+            raise TypeError(f"the kernel takes float32, not {x.dtype}")
+        if x.shape[0] != b or not x.is_contiguous():
+            raise ValueError("rays must be contiguous with one batch size")
+    check_batch(b)
+
+
+def check_batch(b: int) -> None:
+    """The C entry points take the ray count as an int32."""
+    if b >= 2**31:
+        raise ValueError(f"batch of {b} rays exceeds the kernel's int32 count")
+
+
+def _ptr(x) -> int:
+    return x.data_ptr()
+
+
+def closest_tri_small(scene, o, d):
+    """Closest hit with winner attributes -> (t [B], tri_id [B] i32,
+    n_geo [B, 3], mat_id [B] i32); a miss gives inf, -1, 0, 0."""
+    if o.device.type == "cpu":
+        return closest_tri_small_plain(scene, o, d)
+    _check_rays(scene, o, d)
+    if o.shape != (o.shape[0], 3) or d.shape != o.shape:
+        raise ValueError(f"rays must be [B, 3], got {tuple(o.shape)}, {tuple(d.shape)}")
+    from pathtracer_tpu_torch import kernels
+
+    tab = small_table(scene)
+    b = o.shape[0]
+    t = torch.empty(b, dtype=torch.float32, device=o.device)
+    tri_id = torch.empty(b, dtype=torch.int32, device=o.device)
+    n_geo = torch.empty((b, 3), dtype=torch.float32, device=o.device)
+    mat_id = torch.empty(b, dtype=torch.int32, device=o.device)
+    if b == 0:
+        return t, tri_id, n_geo, mat_id
+    lib = kernels.library()
+    with torch.cuda.device(o.device):
+        rc = lib.pt_small_closest(
+            _ptr(o), _ptr(d), _ptr(tab), tab.shape[0], b,
+            _ptr(t), _ptr(tri_id), _ptr(n_geo), _ptr(mat_id),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(rc, "small closest-hit kernel")
+    launches["closest"] += 1
+    return t, tri_id, n_geo, mat_id
+
+
+def occluded_tri_small(scene, o, d, t_cut, want_any: bool = False):
+    """Shadow occlusion -> (occluded [B] bool: some triangle strictly before
+    ``t_cut``; hit_any [B] bool when ``want_any``, else None)."""
+    if o.device.type == "cpu":
+        return occluded_tri_small_plain(scene, o, d, t_cut, want_any)
+    _check_rays(scene, o, d, t_cut)
+    if o.shape != (o.shape[0], 3) or d.shape != o.shape or t_cut.dim() != 1:
+        raise ValueError("rays must be [B, 3] and t_cut [B]")
+    from pathtracer_tpu_torch import kernels
+
+    tab = small_table(scene)
+    b = o.shape[0]
+    occ = torch.empty(b, dtype=torch.uint8, device=o.device)
+    hit_any = torch.empty(b, dtype=torch.uint8, device=o.device) if want_any else None
+    if b == 0:
+        return occ.bool(), (hit_any.bool() if want_any else None)
+    lib = kernels.library()
+    with torch.cuda.device(o.device):
+        rc = lib.pt_small_occluded(
+            _ptr(o), _ptr(d), _ptr(t_cut), _ptr(tab), tab.shape[0], b,
+            _ptr(occ), _ptr(hit_any) if want_any else None,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(rc, "small any-hit kernel")
+    launches["occluded"] += 1
+    return occ.bool(), (hit_any.bool() if want_any else None)

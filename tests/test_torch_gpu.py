@@ -1,0 +1,78 @@
+"""Card tests of the port: the CUDA kernels against their plain versions and
+a render on the card against the CPU port. They need a CUDA device and skip
+without one. On a machine with a card and without JAX:
+
+    PT_TPU_TEST_REAL_DEVICE=1 python -m pytest tests/test_torch_gpu.py -m gpu
+
+(the variable keeps tests/conftest.py from configuring JAX). Tolerances: the
+kernel is bit-equal to its plain version on the card; renders as in
+chip_smoke.py phase 5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracer_tpu_torch.models import procedural
+from pathtracer_tpu_torch.models.pack import pack_scene
+from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
+from pathtracer_tpu_torch.ops import intersect_small as small
+from pathtracer_tpu_torch.render import render_stats
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rays(dev, n=1 << 16):
+    g = np.random.default_rng(3)
+    o = g.uniform([-0.95, 0.05, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o, dtype=torch.float32, device=dev),
+            torch.as_tensor(d, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("mesh", ["cornell", "soup250"])
+def test_kernels_equal_plain_on_card(cuda, mesh):
+    m = (procedural.cornell_box_mesh() if mesh == "cornell"
+         else procedural.triangle_soup_mesh(250, seed=1))
+    scene = scene_from_packed(pack_scene(m), cuda)
+    o, d = _rays(cuda)
+    before = dict(small.launches)
+    got = small.closest_tri_small(scene, o, d)
+    ref = small.closest_tri_small_plain(scene, o, d)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    t_cut = torch.where(torch.isfinite(ref[0]), ref[0], 1.0) * 0.8
+    occ, hit_any = small.occluded_tri_small(scene, o, d, t_cut, True)
+    occ_p, any_p = small.occluded_tri_small_plain(scene, o, d, t_cut, True)
+    assert torch.equal(occ, occ_p) and torch.equal(hit_any, any_p)
+    assert small.launches["closest"] == before["closest"] + 1
+    assert small.launches["occluded"] == before["occluded"] + 1
+
+
+def test_card_render_equals_cpu_render(cuda):
+    st = RenderSettings(width=32, height=32, samples_per_pixel=2)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        scene, camera = procedural.cornell_box_scene(device=dev)
+        img, n = render_stats(scene, camera, st)
+        out.append((img.cpu(), int(n)))
+    (a, na), (b, nb) = out
+    assert na == nb
+    assert ((a - b).abs().amax(-1) <= 1e-4).float().mean() >= 0.99
+
+
+def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    scene, _ = procedural.cornell_box_scene(device=cuda)
+    o, d = _rays(cuda, 64)
+    with pytest.raises(TypeError):
+        small.closest_tri_small(scene, o.double(), d.double())
+    with pytest.raises(ValueError):
+        small.closest_tri_small(scene, o.t().contiguous().t(), d)
