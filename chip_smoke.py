@@ -3,21 +3,36 @@
 
     python chip_smoke.py
 
-Phases, one line of output each (any failure raises and exits non-zero):
+Phases, one line of output each or more (any failure raises and exits
+non-zero):
 
-1. device   -- a CUDA device is present; prints nvidia-smi's name and power limit.
-2. build    -- nvcc builds the kernels from ``pathtracer_tpu_torch/csrc``.
-3. kernel   -- each kernel against its plain torch version on the card, on
-               262,144 rays (Cornell camera rays + random rays inside the box)
-               and three scenes (36, 37 and 250 triangles): t bit-equal, ids,
-               normals, materials and occlusion flags equal; both timed.
-4. cli      -- ``pathtracer_tpu_torch.cli`` renders Cornell-box files written
-               to a temporary directory at 128^2, spp 8 through the kernel.
-5. cpu      -- the card's render equals the CPU port's at 32^2, spp 4: equal
-               rays traced, 99% of pixels within 1e-4, tonemapped MSE <= 1e-4.
-6. headline -- Cornell box at 512^2, spp 16, depth 17, regen, 2^18 lanes,
-               with the kernel ("auto") and the plain sweep ("brute"): equal
-               rays traced, image MSE <= 1e-6; wall time and rays/s of each.
+1. device    -- a CUDA device is present; prints nvidia-smi's name and power
+                limit.
+2. build     -- nvcc builds the kernels from ``pathtracer_tpu_torch/csrc``, one
+                process per source, all started together.
+3. kernel    -- the small-scene kernel against its plain torch version on the
+                card, on 262,144 rays (Cornell camera rays + random rays inside
+                the box) and three scenes (36, 37 and 250 triangles): t
+                bit-equal, ids, normals, materials and occlusion flags equal;
+                both timed.
+4. cli       -- ``pathtracer_tpu_torch.cli`` renders Cornell-box files written
+                to a temporary directory at 128^2, spp 8 through the kernel.
+5. cpu       -- the card's render equals the CPU port's at 32^2, spp 4: equal
+                rays traced, 99% of pixels within 1e-4, tonemapped MSE <= 1e-4.
+6. headline  -- Cornell box at 512^2, spp 16, depth 17, regen, 2^18 lanes,
+                with the kernel ("auto") and the plain sweep ("brute"): equal
+                rays traced, image MSE <= 1e-6; wall time and rays/s of each.
+7. shortlist -- the shortlist kernel against its plain torch twin and the brute
+                sweep on the torus stand-ins (12,580 and 2,276 triangles), on
+                the 262,144 rays of phase 3 and on a batch of 262,143: t 0 ULP
+                from both, ids equal on hit lanes, occlusion equal; all timed.
+8. cli-large -- the CLI renders the 12,580-triangle stand-in's files at 128^2,
+                spp 4 through the shortlist kernel.
+9. large     -- the 12,580-triangle stand-in at 512^2, spp 4, depth 17, regen,
+                2^18 lanes: "auto" (the kernel, rays sorted) against
+                "shortlist" (the plain twin, rays sorted): equal rays traced,
+                image MSE <= 1e-6; "auto" with ray_sort "off": equal rays
+                traced in equal pool iterations; wall time and rays/s of each.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +50,19 @@ import torch
 
 N_RAYS = 1 << 18
 TIMED_LAUNCHES = 20
+TIMED_PLAIN = 3  # the shortlist phase's plain twin and brute sweep are slow
+# Image sides of phase 8's CLI render and phase 9's renders.
+CLI_LARGE_SIZE = 128
+LARGE_SIZE = 512
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel, intersect_small
+
+    for counts in (intersect_small.launches, intersect_shortlist_kernel.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def log(phase: str, msg: str) -> None:
@@ -217,8 +245,7 @@ def phase_headline(dev):
     run("auto")  # warm-up
     results, launches = {}, None
     for intersector in ("brute", "auto", "auto", "brute"):
-        for k in small.launches:
-            small.launches[k] = 0
+        reset_launches()
         img, n, iters, wall = run(intersector)
         counted = dict(small.launches)
         if intersector == "auto" and launches is None:
@@ -241,6 +268,173 @@ def phase_headline(dev):
     return launches
 
 
+def stand_in_scenes(dev):
+    """Phase 7's scenes: (name, Scene), padded to 12,800 and 2,560 triangles."""
+    from pathtracer_tpu_torch.models.pack import pack_scene
+    from pathtracer_tpu_torch.models.procedural import torus_cornell_mesh
+    from pathtracer_tpu_torch.models.scene import scene_from_packed
+
+    out = []
+    for name, mesh, padded in (("torus12580", torus_cornell_mesh(), 12800),
+                               ("torus2276", torus_cornell_mesh(40, 28), 2560)):
+        scene = scene_from_packed(pack_scene(mesh), dev)
+        assert scene.padded_tris == padded, (name, scene.padded_tris)
+        out.append((name, scene))
+    return out
+
+
+def tie_report(scene, o, d, got, ref, lanes) -> str:
+    """For lanes whose ids differ: how many of the two triangles' t tie."""
+    from pathtracer_tpu_torch.ops.intersect import moller_trumbore
+
+    def t_of(ids):
+        ts = []
+        for lane, tri in zip(lanes.tolist(), ids[lanes].tolist()):
+            s = slice(tri, tri + 1)
+            t, _ = moller_trumbore(o[lane : lane + 1], d[lane : lane + 1], scene.tri_v0[s],
+                                   scene.tri_e1[s], scene.tri_e2[s], scene.tri_valid[s])
+            ts.append(t.item())
+        return ts
+
+    ties = sum(a == b for a, b in zip(t_of(got), t_of(ref)))
+    return f"{lanes.numel()} lanes differ, {ties} of them at tied t"
+
+
+def phase_shortlist(dev):
+    from pathtracer_tpu_torch.ops import intersect as tint
+    from pathtracer_tpu_torch.ops import intersect_shortlist as twin
+    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
+
+    o, d, cut_scale = smoke_rays(dev)
+    records = {}
+    for name, scene in stand_in_scenes(dev):
+        for n in (N_RAYS, N_RAYS - 1):
+            oo, dd = o[:n], d[:n]
+            t, tri = sk.closest_tri_shortlist_kernel(scene, oo, dd)
+            refs = {"twin": twin.closest_tri_shortlist(scene, oo, dd),
+                    "brute": tint.closest_tri_brute(scene, oo, dd)}
+            torch.cuda.synchronize()
+            for ref_name, (t_r, id_r) in refs.items():
+                ulp = ulp_distance(t, t_r)
+                assert ulp == 0, f"{name} n={n}: t differs from {ref_name} by {ulp} ULP"
+                hit = torch.isfinite(t_r)
+                lanes = torch.nonzero((tri != id_r) & hit).squeeze(1)
+                assert lanes.numel() == 0, (
+                    f"{name} n={n}: tri_id differs from {ref_name}: "
+                    + tie_report(scene, oo, dd, tri, id_r, lanes))
+                assert bool((tri[~hit] == -1).all()), f"{name}: a miss lane's id is not -1"
+            t_b = refs["brute"][0]
+            t_cut = torch.where(torch.isfinite(t_b), t_b, 1.0) * cut_scale[:n]
+            occ = sk.occluded_tri_shortlist_kernel(scene, oo, dd, t_cut)
+            occ_w = twin.occluded_tri_shortlist(scene, oo, dd, t_cut)
+            occ_b, _ = tint._occluded_tri_brute(scene, oo, dd, t_cut)
+            assert torch.equal(occ, occ_w), f"{name} n={n}: occluded differs from twin"
+            assert torch.equal(occ, occ_b), f"{name} n={n}: occluded differs from brute"
+            hits, n_occ = int(torch.isfinite(t).sum()), int(occ.sum())
+            log("shortlist", f"{name} T={scene.num_tris} rays={n} hits={hits} "
+                f"occluded={n_occ}: t 0 ULP from twin and brute, ids equal on hit "
+                "lanes, occlusion equal to twin and brute")
+            if n == N_RAYS:
+                fin = torch.isfinite(refs["twin"][0])
+                err = {"closest": (t[fin] - refs["twin"][0][fin]).abs().max().item()
+                       if hits else 0.0,
+                       "occluded": (occ.float() - occ_w.float()).abs().max().item()}
+                cut = t_cut
+
+        ms = {
+            "closest": event_ms(lambda: sk.closest_tri_shortlist_kernel(scene, o, d)),
+            "closest_plain": event_ms(lambda: twin.closest_tri_shortlist(scene, o, d),
+                                      TIMED_PLAIN),
+            "closest_brute": event_ms(lambda: tint.closest_tri_brute(scene, o, d),
+                                      TIMED_PLAIN),
+            "occluded": event_ms(lambda: sk.occluded_tri_shortlist_kernel(scene, o, d, cut)),
+            "occluded_plain": event_ms(
+                lambda: twin.occluded_tri_shortlist(scene, o, d, cut), TIMED_PLAIN),
+            "occluded_brute": event_ms(
+                lambda: tint._occluded_tri_brute(scene, o, d, cut), TIMED_PLAIN),
+        }
+        records[name] = (ms, err)
+        log("shortlist", f"{name} at {N_RAYS} rays: closest {ms['closest']:.4f} ms vs "
+            f"twin {ms['closest_plain']:.4f} ms vs brute {ms['closest_brute']:.4f} ms; "
+            f"occluded {ms['occluded']:.4f} ms vs twin {ms['occluded_plain']:.4f} ms "
+            f"vs brute {ms['occluded_brute']:.4f} ms")
+    return records
+
+
+def phase_cli_large(dev):
+    from pathtracer_tpu_torch import cli
+    from pathtracer_tpu_torch.models.procedural import torus_cornell_mesh, write_mesh_files
+    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
+    from pathtracer_tpu_torch.utils.image import read_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = write_mesh_files(tmp, torus_cornell_mesh(), "torus")
+        png = os.path.join(tmp, "cli.png")
+        reset_launches()
+        rc = cli.main([ini, "--size", str(CLI_LARGE_SIZE), "--spp", "4", "--out", png,
+                       "--device", str(dev)])
+        img = read_png(png)
+    rose = dict(sk.launches)
+    assert rc == 0, f"cli returned {rc}"
+    assert img.shape == (CLI_LARGE_SIZE, CLI_LARGE_SIZE, 3), img.shape
+    assert np.isfinite(img).all() and img.mean() > 0.01, img.mean()
+    assert all(v > 0 for v in rose.values()), f"shortlist kernel not launched: {rose}"
+    log("cli-large", f"12,580-triangle stand-in {CLI_LARGE_SIZE}^2 spp 4 PNG ok (mean "
+        f"{img.mean():.4f}); shortlist kernel launches {rose}")
+
+
+def phase_large(dev):
+    from pathtracer_tpu_torch.models.pack import pack_scene
+    from pathtracer_tpu_torch.models.procedural import cornell_box_camera, torus_cornell_mesh
+    from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
+    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
+    from pathtracer_tpu_torch.ops import intersect_small as small
+    from pathtracer_tpu_torch.ops.wavefront import render_regenerative_stats, sort_rays_on
+
+    scene = scene_from_packed(pack_scene(torus_cornell_mesh()), dev)
+    camera = cornell_box_camera()
+    base = dict(samples_per_pixel=4, max_depth=17, rr_prob=0.9, scheduler="regen",
+                batch_size=1 << 18)
+
+    def run(label, size, **kw):
+        st = RenderSettings(width=size, height=size, **base, **kw)
+        reset_launches()
+        (img, n, iters), wall = sync_time(
+            lambda: render_regenerative_stats(scene, camera, st))
+        counted = {**{f"shortlist_{k}": v for k, v in sk.launches.items()},
+                   **{f"small_{k}": v for k, v in small.launches.items()}}
+        assert torch.isfinite(img).all(), f"{label}: non-finite image"
+        assert img.mean().item() > 0.01, f"{label}: image mean {img.mean().item()}"
+        n = int(n)
+        log("large", f"{label}: {size}x{size} spp 4, ray sort "
+            f"{'on' if sort_rays_on(st, scene) else 'off'}: {wall:.4f} s, "
+            f"{n / wall / 1e6:.2f} Mray/s, rays traced {n}, pool iterations {iters}, "
+            f"kernel launches {counted}")
+        return img, n, iters, wall, counted
+
+    run("auto warm-up", LARGE_SIZE)
+    kernel = run("auto (kernel)", LARGE_SIZE)
+    launches = {k.removeprefix("shortlist_"): v for k, v in kernel[4].items()
+                if k.startswith("shortlist_")}
+    assert all(v > 0 for v in launches.values()), f"shortlist kernel not launched: {launches}"
+    assert not any(v for k, v in kernel[4].items() if k.startswith("small_"))
+    unsorted = run("auto, ray_sort off", LARGE_SIZE, ray_sort="off")
+    assert unsorted[1:3] == kernel[1:3], (
+        f"ray_sort off: rays {unsorted[1]} in {unsorted[2]} iterations vs "
+        f"{kernel[1]} in {kernel[2]}")
+
+    plain = run("shortlist (plain twin)", LARGE_SIZE, intersector="shortlist")
+    assert not any(plain[4].values()), f"the twin launched a kernel: {plain[4]}"
+    again = run("auto (kernel)", LARGE_SIZE)
+    assert plain[1] == kernel[1], f"rays traced: kernel {kernel[1]} vs twin {plain[1]}"
+    err = torch.mean((kernel[0] - plain[0]) ** 2).item()
+    assert err <= 1e-6, f"image MSE kernel vs twin {err}"
+    log("large", f"{LARGE_SIZE}^2: equal rays traced ({plain[1]}); image MSE "
+        f"kernel vs twin {err:.3e}; {LARGE_SIZE}^2 ray sort off: equal rays ({unsorted[1]}) "
+        f"and iterations ({unsorted[2]}); kernel walls {kernel[3]:.4f}, {again[3]:.4f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -257,8 +451,12 @@ def main() -> int:
     from pathtracer_tpu_torch import kernels
 
     kernels.library()
-    ptxas = [ln.split("info    : ")[-1] for ln in kernels.build_log.splitlines()
-             if "registers" in ln]
+    ptxas, entry = [], "?"
+    for ln in kernels.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "registers" in ln:
+            ptxas.append(f"{entry}: {ln.split('info    : ')[-1]}")
     log("build", f"nvcc built {os.path.basename(kernels.library_path())} in "
         f"{kernels.build_seconds:.2f} s; ptxas: {'; '.join(ptxas)}")
 
@@ -266,20 +464,24 @@ def main() -> int:
     phase_cli(dev)
     phase_cpu(dev)
     launches = phase_headline(dev)
+    sl_ms = phase_shortlist(dev)
+    phase_cli_large(dev)
+    sl_launches = phase_large(dev)
 
-    src = "pathtracer_tpu_torch/csrc/intersect_small.cu"
-    replaces = "pathtracer_tpu/ops/intersect_small_pallas.py:176"
-    main_ms, main_err = ms["cornell36"]
-    print(json.dumps({"kernels": [
-        {"name": "intersect_small_closest", "route": "cuda", "source": src,
-         "replaces": replaces, "launches": launches["closest"],
-         "max_abs_err": main_err["closest"],
-         "ms": main_ms["closest"], "plain_ms": main_ms["closest_plain"]},
-        {"name": "intersect_small_occluded", "route": "cuda", "source": src,
-         "replaces": replaces, "launches": launches["occluded"],
-         "max_abs_err": main_err["occluded"],
-         "ms": main_ms["occluded"], "plain_ms": main_ms["occluded_plain"]},
-    ]}))
+    rows = []
+    for family, source, replaces, counts, (k_ms, k_err) in (
+        ("intersect_small", "pathtracer_tpu_torch/csrc/intersect_small.cu",
+         "pathtracer_tpu/ops/intersect_small_pallas.py:176", launches, ms["cornell36"]),
+        ("intersect_shortlist", "pathtracer_tpu_torch/csrc/intersect_shortlist.cu",
+         "pathtracer_tpu/ops/intersect_shortlist_pallas.py:425", sl_launches,
+         sl_ms["torus12580"]),
+    ):
+        for entry in ("closest", "occluded"):
+            rows.append({"name": f"{family}_{entry}", "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": counts[entry],
+                         "max_abs_err": k_err[entry], "ms": k_ms[entry],
+                         "plain_ms": k_ms[f"{entry}_plain"]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

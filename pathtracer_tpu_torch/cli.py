@@ -31,9 +31,11 @@ def main(argv=None) -> int:
             "auto", "brute", "small_pallas", "shortlist",
             "shortlist_pallas", "bvh", "pallas", "cluster",
         ),
-        help="auto = the CUDA small-scene kernel for <= 256 triangles on a "
-        "CUDA device, else the plain brute sweep; shortlist, shortlist_pallas, "
-        "bvh, pallas and cluster are not ported yet and raise",
+        help="auto = on a CUDA device the small-scene kernel for <= 256 "
+        "triangles and the shortlist kernel (shortlist_pallas) for >= 2048 "
+        "padded triangles; on the CPU the shortlist's torch twin (shortlist) "
+        "for >= 2048; else the plain brute sweep. bvh, pallas and cluster are "
+        "not ported yet and raise",
     )
     p.add_argument(
         "--seed", type=int, default=0,

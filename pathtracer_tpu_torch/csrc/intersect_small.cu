@@ -22,68 +22,21 @@
 // shared-memory row after the loop. `occluded` returns at the first accepted
 // t < t_cut: that also settles hit_any.
 //
-// Exactness. Built with -fmad=false and without fast math, the Moller-Trumbore
-// arithmetic below is rounded operation by operation in the order of the JAX
-// kernel (intersect_small_pallas.py:91-108) and of the torch version, whose
-// separate elementwise kernels never fuse into FMA: t agrees bit for bit.
+// Exactness. `hit_triangle` (ray_triangle.cuh, shared with the shortlist
+// kernel) rounds Moller-Trumbore operation by operation in the order of the
+// JAX kernel (intersect_small_pallas.py:91-108) and of the torch version:
+// t agrees bit for bit.
 //
 // What bounds it on the card: per ray, T8 x ~40 flops against 28 bytes of ray
 // traffic (plus the outputs), so compute and latency, not HBM. wgmma, TMA,
 // warp-level ray packets and a wider T range are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ray_triangle.cuh"
 
 namespace {
 
-constexpr int kCols = 16;
 constexpr int kMaxT8 = 256;
 constexpr int kBlock = 256;
-constexpr float kEps = 1e-8f;
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d, int64_t r) {
-  Ray ray;
-  ray.ox = o[3 * r + 0];
-  ray.oy = o[3 * r + 1];
-  ray.oz = o[3 * r + 2];
-  ray.dx = d[3 * r + 0];
-  ray.dy = d[3 * r + 1];
-  ray.dz = d[3 * r + 2];
-  return ray;
-}
-
-// Moller-Trumbore against one table row; true when the triangle is accepted.
-__device__ __forceinline__ bool hit_triangle(const float* __restrict__ row,
-                                             const Ray& r, float& t_out) {
-  const float ax = row[0], ay = row[1], az = row[2];
-  const float bx = row[3], by = row[4], bz = row[5];
-  const float cx = row[6], cy = row[7], cz = row[8];
-  // pvec = d x e2
-  const float px = r.dy * cz - r.dz * cy;
-  const float py = r.dz * cx - r.dx * cz;
-  const float pz = r.dx * cy - r.dy * cx;
-  const float det = bx * px + by * py + bz * pz;
-  const bool det_ok = fabsf(det) > kEps;
-  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-  // s = o - v0
-  const float sx = r.ox - ax, sy = r.oy - ay, sz = r.oz - az;
-  const float u = (sx * px + sy * py + sz * pz) * inv_det;
-  // qvec = s x e1
-  const float qx = sy * bz - sz * by;
-  const float qy = sz * bx - sx * bz;
-  const float qz = sx * by - sy * bx;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  const float t = (cx * qx + cy * qy + cz * qz) * inv_det;
-  t_out = t;
-  return det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-         t > kEps && row[9] > 0.5f;
-}
 
 __device__ __forceinline__ void stage_table(float* tab,
                                             const float* __restrict__ table,
@@ -99,7 +52,6 @@ __global__ void __launch_bounds__(kBlock)
                          float* __restrict__ n_out, int* __restrict__ mat_out) {
   __shared__ float tab[kMaxT8 * kCols];
   stage_table(tab, table, t8);
-  // int64: 3 * r overflows int from about 715M rays on.
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const Ray ray = load_ray(o, d, r);
@@ -137,7 +89,6 @@ __global__ void __launch_bounds__(kBlock)
                           uint8_t* __restrict__ any_out) {
   __shared__ float tab[kMaxT8 * kCols];
   stage_table(tab, table, t8);
-  // int64: 3 * r overflows int from about 715M rays on.
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const Ray ray = load_ray(o, d, r);

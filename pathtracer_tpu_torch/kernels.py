@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package into one
-shared library with a plain C interface,
-``_build/libpt_kernels_<hash>.so``, where the hash covers the sources and
-the flags, and ``ctypes`` loads it. Only the sources in the package are used;
-a failed build raises with nvcc's output and nothing falls back.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, ``_build/libpt_kernels_<hash>.so``,
+where the hash covers the sources (headers included) and the flags; ``ctypes``
+loads it. Only the sources in the package are used; a failed build raises with
+nvcc's output and nothing falls back.
 
 The flags keep IEEE arithmetic (``-fmad=false``, no fast math) so that the
 kernels round like their plain torch versions.
@@ -26,7 +27,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 )
 
@@ -35,6 +36,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "pt_small_closest": ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
     "pt_small_occluded": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
+    "pt_shortlist_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
+    "pt_shortlist_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P], _I),
     "pt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -72,6 +75,20 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libpt_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run(procs) -> None:
+    """Wait for every nvcc process; raise with the first failure's output."""
+    global build_log
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        build_log += out
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> str:
     """Compile the kernels if the library for these sources is missing."""
     global build_seconds, build_log
@@ -80,18 +97,28 @@ def build() -> str:
         build_seconds = 0.0
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tag = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
+    build_log = ""
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tag}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    try:
+        _run(procs)
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tag}.tmp", *objs]
+        _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
-        )
-    os.replace(tmp, out)
+    os.replace(f"{tag}.tmp", out)
     return out
 
 

@@ -1,7 +1,8 @@
 """Procedural test scenes (no file IO).
 
 A self-contained Cornell-style box used by tests and ``chip_smoke.py`` so they
-never depend on external assets. Geometry and material values mirror the
+never depend on external assets, and a torus in that box as a large-scene
+stand-in (``torus_cornell_mesh``). Geometry and material values mirror the
 CornellBox-Original layout the reference renders (red/green side walls,
 white floor/ceiling/back, two boxes, one warm area light).
 
@@ -171,6 +172,53 @@ def triangle_soup_mesh(n_tris: int, seed: int = 0,
     )
 
 
+def torus_cornell_mesh(n_u: int = 112, n_v: int = 56) -> ObjMesh:
+    """The Cornell box plus a closed, diffuse, tessellated torus of
+    ``2 * n_u * n_v`` triangles: a large-scene stand-in with no asset file.
+
+    The torus (major radius 0.38, minor 0.13, ring tilted 50 degrees toward
+    the camera, centred at (0, 1.3, 0.35)) floats in the room in view of
+    ``cornell_box_camera``, clear of the boxes, the walls and the light. At
+    the defaults it has 12,580 triangles, which ``pack_scene`` pads to 12,800
+    as it pads MedievalBoat's 12,573; at (40, 28), 2,276, padded to 2,560 as
+    the refraction final's 2.2k are.
+    """
+    box = cornell_box_mesh()
+    big_r, small_r, tilt = 0.38, 0.13, np.deg2rad(50.0)
+    center = np.array([0.0, 1.3, 0.35])
+    u = 2.0 * np.pi * np.arange(n_u) / n_u  # around the ring
+    v = 2.0 * np.pi * np.arange(n_v) / n_v  # around the tube
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    rad = big_r + small_r * np.cos(vv)
+    # Ring in the local xz plane, axis y; rotated about x by ``tilt``.
+    x, y, z = rad * np.cos(uu), small_r * np.sin(vv), rad * np.sin(uu)
+    y, z = y * np.cos(tilt) - z * np.sin(tilt), y * np.sin(tilt) + z * np.cos(tilt)
+    ring = np.stack([x, y, z], axis=-1).reshape(-1, 3) + center
+
+    i, j = np.meshgrid(np.arange(n_u), np.arange(n_v), indexing="ij")
+    a = i * n_v + j
+    b = ((i + 1) % n_u) * n_v + j
+    c = ((i + 1) % n_u) * n_v + (j + 1) % n_v
+    e = i * n_v + (j + 1) % n_v
+    n0 = box.positions.shape[0]
+    # Two triangles per quad, wound so the normals point out of the tube.
+    quads = np.stack([np.stack([a, e, c], -1), np.stack([a, c, b], -1)], axis=2)
+    faces = quads.reshape(-1, 3) + n0
+    mats = list(box.materials) + [
+        ObjMaterial(name="torus", Ns=10, illum=2, Kd=(0.75, 0.55, 0.3))]
+    n_faces = box.faces.shape[0] + faces.shape[0]
+    return ObjMesh(
+        positions=np.concatenate([box.positions, ring]),
+        normals=box.normals,
+        faces=np.concatenate([box.faces, faces]).astype(np.int32),
+        face_normals=np.full((n_faces, 3), -1, np.int32),
+        face_material=np.concatenate(
+            [box.face_material, np.full(faces.shape[0], len(mats) - 1)]
+        ).astype(np.int32),
+        materials=mats,
+    )
+
+
 def cornell_box_camera() -> Camera:
     """The camera the procedural Cornell box is rendered from."""
     return Camera(
@@ -192,23 +240,24 @@ def cornell_box_scene(max_leaf: int = 8, glossy_tall_box: bool = False,
     return scene_from_packed(packed, device), cornell_box_camera()
 
 
-def write_cornell_box_files(directory: str, width: int = 512, height: int = 512,
-                            samples_per_pixel: int = 16) -> str:
-    """Write the procedural Cornell box as OBJ + MTL, an XML scenefile and an
-    INI into ``directory``; returns the INI's path.
+def write_mesh_files(directory: str, mesh: ObjMesh, name: str,
+                     width: int = 512, height: int = 512,
+                     samples_per_pixel: int = 16) -> str:
+    """Write ``mesh`` as ``<name>.obj`` + ``.mtl``, an XML scenefile with
+    ``cornell_box_camera`` and an INI into ``directory``; returns the INI's
+    path. The INI's output is ``out/<name>.png``.
 
     Coordinates are written exactly (``repr``), so the loaded mesh equals
-    ``cornell_box_mesh``'s up to the OBJ's material order.
+    ``mesh`` up to the OBJ's material order.
     """
     import os
 
-    mesh = cornell_box_mesh()
-    with open(os.path.join(directory, "cornell.mtl"), "w") as f:
+    with open(os.path.join(directory, f"{name}.mtl"), "w") as f:
         for m in mesh.materials:
             f.write(f"newmtl {m.name}\nNs {m.Ns!r}\nNi {m.Ni!r}\nillum {m.illum!r}\n")
             for key in ("Ka", "Kd", "Ks", "Ke"):
                 f.write(f"{key} {' '.join(repr(float(x)) for x in getattr(m, key))}\n")
-    with open(os.path.join(directory, "cornell.obj"), "w") as f:
+    with open(os.path.join(directory, f"{name}.obj"), "w") as f:
         for v in mesh.positions:
             f.write(f"v {' '.join(repr(float(x)) for x in v)}\n")
         cur = None
@@ -222,22 +271,29 @@ def write_cornell_box_files(directory: str, width: int = 512, height: int = 512,
     def vec(tag, v):
         return f'<{tag} x="{v[0]!r}" y="{v[1]!r}" z="{v[2]!r}"/>'
 
-    with open(os.path.join(directory, "cornell.xml"), "w") as f:
+    with open(os.path.join(directory, f"{name}.xml"), "w") as f:
         f.write(
             "<scenefile>\n  <cameradata>\n"
             f"    {vec('pos', cam.pos)}\n    {vec('up', cam.up)}\n"
             f"    {vec('focus', cam.focus)}\n"
             f'    <heightangle v="{cam.height_angle_deg!r}"/>\n'
             "  </cameradata>\n"
-            '  <object type="primitive" name="mesh" filename="cornell.obj"/>\n'
+            f'  <object type="primitive" name="mesh" filename="{name}.obj"/>\n'
             "</scenefile>\n"
         )
-    ini = os.path.join(directory, "cornell.ini")
+    ini = os.path.join(directory, f"{name}.ini")
     with open(ini, "w") as f:
         f.write(
-            "[IO]\nscene = /cornell.xml\noutput = out/cornell.png\n\n"
+            f"[IO]\nscene = /{name}.xml\noutput = out/{name}.png\n\n"
             f"[Settings]\nimageWidth = {width}\nimageHeight = {height}\n"
             f"samplesPerPixel = {samples_per_pixel}\npathContinuationProb = 0.9\n"
             "directLightingOnly = false\nnumDirectLightingSamples = 1\n"
         )
     return ini
+
+
+def write_cornell_box_files(directory: str, width: int = 512, height: int = 512,
+                            samples_per_pixel: int = 16) -> str:
+    """``write_mesh_files`` of the procedural Cornell box as ``cornell.*``."""
+    return write_mesh_files(directory, cornell_box_mesh(), "cornell", width,
+                            height, samples_per_pixel)

@@ -113,8 +113,10 @@ class RenderSettings:
     compat_fixed_eta: bool = True
     # shading normal = geometric normal
     use_vertex_normals: bool = False
-    # "auto" | "small_pallas" (here: the CUDA small-scene kernel) | "brute";
-    # the other JAX names raise NotImplementedError (ops.intersect).
+    # "auto" | "brute" | "small_pallas" (here: the CUDA small-scene kernel) |
+    # "shortlist" (the block shortlist's torch twin) | "shortlist_pallas"
+    # (here: the CUDA shortlist kernel); "bvh", "pallas" and "cluster" raise
+    # NotImplementedError (ops.intersect).
     intersector: str = "auto"
     # NEE shadow rays: "fast" (occlusion sweep) | "closest" (full closest hit)
     shadow_mode: str = "fast"
@@ -128,8 +130,8 @@ class RenderSettings:
     seed: int = 0
     # Scheduler: "regen" (regenerative pool) | "scan" (fixed-depth waves)
     scheduler: str = "regen"
-    # Pool lane sorting: "auto" resolves to off for the ported intersectors;
-    # "on" is not ported yet and raises.
+    # Pool lane sorting: "auto" (on for the shortlist intersectors) | "on" |
+    # "off" (ops.wavefront.sort_rays_on).
     ray_sort: str = "auto"
     # Samples per lane spawn in the regenerative pool (0 = auto, see
     # ops.wavefront.resolve_spawn_chunk).

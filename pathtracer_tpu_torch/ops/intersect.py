@@ -7,6 +7,9 @@ Port of ``pathtracer_tpu/ops/intersect.py``:
   over the triangle axis so the [B, tile] intermediates stay bounded;
 - the CUDA small-scene kernel (``ops.intersect_small``) for scenes of at
   most 256 triangles on a CUDA device;
+- the block shortlist for scenes of >= 2048 padded triangles: the CUDA
+  kernel (``ops.intersect_shortlist_kernel``) on a CUDA device, its plain
+  torch twin (``ops.intersect_shortlist``) on the CPU;
 - analytic unit sphere/cube primitives;
 - winner attributes and materials picked by indexing with the winning
   triangle and material ids.
@@ -21,6 +24,8 @@ import dataclasses
 
 import torch
 
+from pathtracer_tpu_torch.ops import intersect_shortlist as shortlist
+from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist_kernel
 from pathtracer_tpu_torch.ops import intersect_small
 
 EPS_TRI = 1e-8  # the reference's ray-triangle epsilon
@@ -29,16 +34,24 @@ INF = float("inf")
 # Triangles per tile of the plain sweep: [B, tile] f32 intermediates.
 BRUTE_TILE = 256
 
-# Padded triangle count at which the JAX package's ``auto`` switches to the
-# block-shortlist intersector, which is not ported yet.
+# Padded triangle count at which ``auto`` switches to the block shortlist,
+# as the JAX package's does.
 SHORTLIST_MIN_T = 2048
 
 _NOT_PORTED = {
-    "shortlist": "ROADMAP queue item 1 (kernel 2, the block shortlist, and its torch twin)",
-    "shortlist_pallas": "ROADMAP queue item 1 (kernel 2, the block shortlist)",
-    "pallas": "ROADMAP queue item 2 (kernel 3, intersect_pallas)",
-    "cluster": "ROADMAP queue item 3 (kernel 4, intersect_cluster)",
-    "bvh": "ROADMAP queue item 10 (the BVH oracle)",
+    "pallas": "ROADMAP queue item 1 (kernel 3, intersect_pallas)",
+    "cluster": "ROADMAP queue item 2 (kernel 4, intersect_cluster)",
+    "bvh": "ROADMAP queue item 8 (the BVH oracle)",
+}
+
+# (t [B], tri_id [B] i64) of the closest triangle, by shortlist route.
+_SHORTLIST_CLOSEST = {
+    "shortlist": shortlist.closest_tri_shortlist,
+    "shortlist_pallas": shortlist_kernel.closest_tri_shortlist_kernel,
+}
+_SHORTLIST_OCCLUDED = {
+    "shortlist": shortlist.occluded_tri_shortlist,
+    "shortlist_pallas": shortlist_kernel.occluded_tri_shortlist_kernel,
 }
 
 
@@ -59,18 +72,16 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
-def moller_trumbore(o, d, v0, e1, e2, valid):
-    """Rays [B, 3] x triangles [T, 3] -> (t [B, T], ok [B, T]).
+def mt_components(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z, e1x, e1y, e1z,
+                  e2x, e2y, e2z, valid):
+    """Moller-Trumbore on broadcastable ray and triangle components ->
+    (t, ok), t = inf where not accepted.
 
-    Componentwise, in the operation order of the JAX package's sweep, so
-    that ``t`` agrees bit for bit wherever no FMA is contracted.
+    Componentwise, in the operation order of the JAX package's sweeps, so
+    that ``t`` agrees bit for bit wherever no FMA is contracted. The brute
+    sweep and the shortlist twin (``ops.intersect_shortlist``) both call it,
+    so their ``t`` are bit-equal.
     """
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]  # [B, 1]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    v0x, v0y, v0z = v0[None, :, 0], v0[None, :, 1], v0[None, :, 2]  # [1, T]
-    e1x, e1y, e1z = e1[None, :, 0], e1[None, :, 1], e1[None, :, 2]
-    e2x, e2y, e2z = e2[None, :, 0], e2[None, :, 1], e2[None, :, 2]
-
     # pvec = d x e2
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
@@ -94,9 +105,20 @@ def moller_trumbore(o, d, v0, e1, e2, valid):
         & (v >= 0.0)
         & (u + v <= 1.0)
         & (t > EPS_TRI)
-        & valid[None, :]
+        & valid
     )
     return torch.where(ok, t, INF), ok
+
+
+def moller_trumbore(o, d, v0, e1, e2, valid):
+    """Rays [B, 3] x triangles [T, 3] -> (t [B, T], ok [B, T])."""
+    return mt_components(
+        o[:, 0:1], o[:, 1:2], o[:, 2:3], d[:, 0:1], d[:, 1:2], d[:, 2:3],
+        v0[None, :, 0], v0[None, :, 1], v0[None, :, 2],
+        e1[None, :, 0], e1[None, :, 1], e1[None, :, 2],
+        e2[None, :, 0], e2[None, :, 1], e2[None, :, 2],
+        valid[None, :],
+    )
 
 
 def _tiles(scene):
@@ -139,31 +161,35 @@ def _occluded_tri_brute(scene, o, d, t_cut):
 def resolve_intersector(settings, scene) -> str:
     """Concrete intersector for ``settings.intersector`` (resolving "auto").
 
-    ``auto``: the CUDA small-scene kernel ("small_pallas", the JAX name kept
-    for settings parity) for a scene on a CUDA device with at most
-    ``SMALL_MAX_T8`` 8-rounded triangles; the plain "brute" sweep on the CPU
-    and for 257-2047 padded triangles on CUDA. At ``SHORTLIST_MIN_T``
-    padded triangles and above JAX routes to the shortlist family, which is
-    not ported yet, so ``auto`` raises there rather than fall back.
+    ``auto`` (the JAX names kept for settings parity): at
+    ``SHORTLIST_MIN_T`` padded triangles and above, the CUDA shortlist
+    kernel ("shortlist_pallas") on a CUDA scene and its plain torch twin
+    ("shortlist") on the CPU, as JAX takes its kernel on the accelerator and
+    its XLA twin elsewhere; below, the CUDA small-scene kernel
+    ("small_pallas") for a CUDA scene of at most ``SMALL_MAX_T8`` 8-rounded
+    triangles, else the plain "brute" sweep. An explicit "shortlist_pallas"
+    needs a CUDA scene: on the CPU it raises rather than run the twin.
     """
     method = settings.intersector
+    cuda = scene.device.type == "cuda"
     if method == "auto":
         if scene.padded_tris >= SHORTLIST_MIN_T:
-            raise NotImplementedError(
-                f"scenes of >= {SHORTLIST_MIN_T} padded triangles "
-                f"({scene.padded_tris} here) route to the shortlist "
-                f"intersector, not ported yet: {_NOT_PORTED['shortlist_pallas']}"
-            )
+            return "shortlist_pallas" if cuda else "shortlist"
         t8 = (scene.num_tris + 7) // 8 * 8
-        if scene.device.type == "cuda" and t8 <= intersect_small.SMALL_MAX_T8:
+        if cuda and t8 <= intersect_small.SMALL_MAX_T8:
             return "small_pallas"
         return "brute"
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"intersector={method!r} is not ported yet: {_NOT_PORTED[method]}"
         )
-    if method not in ("brute", "small_pallas"):
+    if method not in ("brute", "small_pallas", "shortlist", "shortlist_pallas"):
         raise ValueError(f"unknown intersector {method!r}")
+    if method == "shortlist_pallas" and not cuda:
+        raise ValueError(
+            "intersector='shortlist_pallas' is the CUDA kernel and needs a CUDA "
+            f"scene, not {scene.device}; 'shortlist' is its plain torch twin"
+        )
     return method
 
 
@@ -185,6 +211,15 @@ def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
         )
         if not settings.direct_lighting_only:
             hit_any = occ  # not computed; consumed only by direct lighting
+    elif method in _SHORTLIST_CLOSEST and settings.direct_lighting_only:
+        # Direct lighting consumes "the shadow ray hit anything", which the
+        # cutoff-bounded any-hit loop does not compute: the closest-hit core
+        # answers both, as in the JAX package.
+        t_tri, _ = _SHORTLIST_CLOSEST[method](scene, o, d)
+        occ, hit_any = t_tri < t_cut, torch.isfinite(t_tri)
+    elif method in _SHORTLIST_OCCLUDED:
+        occ = _SHORTLIST_OCCLUDED[method](scene, o, d, t_cut)
+        hit_any = occ  # consumed only by direct lighting, handled above
     else:
         occ, hit_any = _occluded_tri_brute(scene, o, d, t_cut)
 
@@ -333,7 +368,8 @@ def closest_hit(scene, o, d, settings):
         )
         tri_id, mat_id = tri_id.to(torch.int64), mat_id.to(torch.int64)
     else:
-        t_tri, tri_id = closest_tri_brute(scene, o, d)
+        closest = _SHORTLIST_CLOSEST.get(method, closest_tri_brute)
+        t_tri, tri_id = closest(scene, o, d)
         tri_hit = tri_id >= 0
         win = torch.clamp(tri_id, min=0)
         n_geo = torch.where(tri_hit[:, None], scene.tri_n[win], 0.0)

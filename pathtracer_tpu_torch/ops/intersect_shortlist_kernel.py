@@ -1,0 +1,130 @@
+"""Block-shortlist closest hit and any-hit for large scenes: the CUDA kernel.
+
+Port of ``pathtracer_tpu/ops/intersect_shortlist_pallas.py``
+(``intersector="shortlist_pallas"``, ``auto``'s choice on a CUDA scene of
+>= 2048 padded triangles). The kernel (``csrc/intersect_shortlist.cu``) takes
+128 rays per block against 128-triangle clusters: a root-box pre-test, a
+resident [128, C] slab entry matrix, and rounds that sweep the nearest cluster
+still improvable for some ray of the block (see the source).
+
+The wrappers take the plain torch twin (``ops.intersect_shortlist`` with its
+defaults) for tensors on the CPU and launch the kernel for tensors on a CUDA
+device: a CUDA tensor never reaches the twin. ``launches`` counts the kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pathtracer_tpu_torch.ops import intersect_shortlist as twin
+from pathtracer_tpu_torch.ops.intersect_small import check_rays, triangle_rows
+
+CLUSTER = 128  # triangles per cluster = rays per block
+_COLS = 16  # f32 columns of a table row
+_BIG_F = 3.0e38
+
+# Shared memory a block may take on an H100 or H200 (232,448 bytes opt-in),
+# less 1 KB for the kernel's static arrays.
+SMEM_BUDGET = 232448 - 1024
+
+
+def smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one block over ``c`` clusters: the staged
+    cluster rows, the boxes, the [128, c | 1] entry matrix and the visited
+    flags (csrc/intersect_shortlist.cu ``smem_bytes``)."""
+    boxes = -(-4 * 6 * (c + 1) // 16) * 16
+    return 4 * CLUSTER * _COLS + boxes + 4 * CLUSTER * (c | 1) + c
+
+
+SHORTLIST_MAX_CLUSTERS = max(c for c in range(1, 1024) if smem_bytes(c) <= SMEM_BUDGET)
+
+# Kernel launches by entry point; only the wrappers below add to it.
+launches = {"closest": 0, "occluded": 0}
+
+
+def check_clusters(c: int) -> None:
+    """The entry matrix of ``c`` clusters must fit one block's shared memory."""
+    if c > SHORTLIST_MAX_CLUSTERS:
+        raise ValueError(
+            f"the shortlist kernel takes at most {SHORTLIST_MAX_CLUSTERS} clusters "
+            f"of {CLUSTER} triangles ({SHORTLIST_MAX_CLUSTERS * CLUSTER} padded "
+            f"triangles; its [128, C] entry matrix lives in {SMEM_BUDGET} bytes of "
+            f"shared memory); this scene has {c}"
+        )
+
+
+def kernel_table(scene):
+    """(table [C*128, 16] f32, bounds [C+1, 6] f32), kept in ``scene.cache``.
+
+    Table rows in packed (BVH-leaf) order, with the small kernel's columns:
+    v0.xyz e1.xyz e2.xyz valid id n.xyz mat_id pad; rows past the scene's
+    triangles have valid = 0. Bounds: per 128-triangle cluster lo.xyz hi.xyz
+    over its valid triangles (lo > hi for a cluster with none), then the
+    root box over the valid clusters.
+    """
+    cached = scene.cache.get("shortlist_table")
+    if cached is not None:
+        return cached
+    tp = -(-scene.padded_tris // CLUSTER) * CLUSTER
+    c = tp // CLUSTER
+    check_clusters(c)
+    table = triangle_rows(scene, tp)
+    lo, hi = twin.cluster_bounds(scene, CLUSTER)
+    ok = (lo[:, 0] <= hi[:, 0])[:, None]
+    root = torch.cat([torch.where(ok, lo, _BIG_F).amin(dim=0),
+                      torch.where(ok, hi, -_BIG_F).amax(dim=0)])
+    bounds = torch.cat([torch.cat([lo, hi], dim=1), root[None]]).contiguous()
+    scene.cache["shortlist_table"] = (table, bounds)
+    return table, bounds
+
+
+def closest_tri_shortlist_kernel(scene, o, d):
+    """Closest hit -> (t [B] f32, inf on a miss; tri_id [B] i64, -1 on a
+    miss)."""
+    if o.device.type == "cpu":
+        return twin.closest_tri_shortlist(scene, o, d)
+    check_rays(scene, o, d)
+    from pathtracer_tpu_torch import kernels
+
+    table, bounds = kernel_table(scene)
+    b = o.shape[0]
+    t = torch.empty(b, dtype=torch.float32, device=o.device)
+    tri_id = torch.empty(b, dtype=torch.int64, device=o.device)
+    if b == 0:
+        return t, tri_id
+    lib = kernels.library()
+    with torch.cuda.device(o.device):
+        rc = lib.pt_shortlist_closest(
+            o.data_ptr(), d.data_ptr(), table.data_ptr(), bounds.data_ptr(),
+            bounds.shape[0] - 1, b, t.data_ptr(), tri_id.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(rc, "shortlist closest-hit kernel")
+    launches["closest"] += 1
+    return t, tri_id
+
+
+def occluded_tri_shortlist_kernel(scene, o, d, t_cut):
+    """Shadow occlusion -> occluded [B] bool: some triangle strictly before
+    ``t_cut``."""
+    if o.device.type == "cpu":
+        return twin.occluded_tri_shortlist(scene, o, d, t_cut)
+    check_rays(scene, o, d, t_cut)
+    from pathtracer_tpu_torch import kernels
+
+    table, bounds = kernel_table(scene)
+    b = o.shape[0]
+    occ = torch.empty(b, dtype=torch.uint8, device=o.device)
+    if b == 0:
+        return occ.bool()
+    lib = kernels.library()
+    with torch.cuda.device(o.device):
+        rc = lib.pt_shortlist_occluded(
+            o.data_ptr(), d.data_ptr(), t_cut.data_ptr(), table.data_ptr(),
+            bounds.data_ptr(), bounds.shape[0] - 1, b, occ.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(rc, "shortlist any-hit kernel")
+    launches["occluded"] += 1
+    return occ.bool()

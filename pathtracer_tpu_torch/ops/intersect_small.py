@@ -22,8 +22,25 @@ SMALL_MAX_T8 = 256  # largest 8-rounded triangle count the kernel serves
 launches = {"closest": 0, "occluded": 0}
 
 
+def triangle_rows(scene, rows: int) -> torch.Tensor:
+    """[rows, 16] f32 triangle table: v0.xyz e1.xyz e2.xyz valid id n.xyz
+    mat_id pad, row i for triangle i; rows past the scene's arrays are zero
+    (valid = 0) but for their id. Both kernels read this layout."""
+    n = min(rows, scene.padded_tris)
+    dev = scene.tri_v0.device
+    tab = torch.zeros((rows, 16), dtype=torch.float32, device=dev)
+    tab[:n, 0:3] = scene.tri_v0[:n]
+    tab[:n, 3:6] = scene.tri_e1[:n]
+    tab[:n, 6:9] = scene.tri_e2[:n]
+    tab[:n, 9] = scene.tri_valid[:n].to(torch.float32)
+    tab[:, 10] = torch.arange(rows, dtype=torch.float32, device=dev)
+    tab[:n, 11:14] = scene.tri_n[:n]
+    tab[:n, 14] = scene.tri_mat[:n].to(torch.float32)
+    return tab
+
+
 def small_table(scene) -> torch.Tensor:
-    """[T8, 16] f32 table: v0.xyz e1.xyz e2.xyz valid id n.xyz mat_id pad.
+    """[T8, 16] f32 ``triangle_rows`` table, T8 the 8-rounded triangle count.
 
     Built once per scene and kept in ``scene.cache``.
     """
@@ -35,21 +52,7 @@ def small_table(scene) -> torch.Tensor:
                 f"the small-scene kernel takes at most {SMALL_MAX_T8} "
                 f"triangles (8-rounded); this scene has {t8}"
             )
-        f32 = torch.float32
-        dev = scene.tri_v0.device
-        tab = torch.cat(
-            [
-                scene.tri_v0[:t8],
-                scene.tri_e1[:t8],
-                scene.tri_e2[:t8],
-                scene.tri_valid[:t8].to(f32)[:, None],
-                torch.arange(t8, dtype=f32, device=dev)[:, None],
-                scene.tri_n[:t8],
-                scene.tri_mat[:t8].to(f32)[:, None],
-                torch.zeros((t8, 1), dtype=f32, device=dev),
-            ],
-            dim=1,
-        ).contiguous()
+        tab = triangle_rows(scene, t8)
         scene.cache["small_table"] = tab
     return tab
 
@@ -83,18 +86,24 @@ def occluded_tri_small_plain(scene, o, d, t_cut, want_any: bool = False):
     return occ, (torch.any(ok, dim=1) if want_any else None)
 
 
-def _check_rays(scene, *tensors):
-    dev = tensors[0].device
+def check_rays(scene, o, d, *per_ray):
+    """Refuse what a kernel cannot take: rays ``o``, ``d`` [B, 3] and
+    ``per_ray`` [B] tensors must be contiguous float32 on the scene's CUDA
+    device."""
+    dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, not {dev}")
-    b = tensors[0].shape[0]
-    for x in tensors:
+    b = o.shape[0]
+    for x in (o, d, *per_ray):
         if x.device != dev or scene.tri_v0.device != dev:
             raise ValueError("rays and scene must lie on one CUDA device")
         if x.dtype != torch.float32:
             raise TypeError(f"the kernel takes float32, not {x.dtype}")
         if x.shape[0] != b or not x.is_contiguous():
             raise ValueError("rays must be contiguous with one batch size")
+    if o.shape != (b, 3) or d.shape != (b, 3) or any(x.dim() != 1 for x in per_ray):
+        raise ValueError(f"rays must be [B, 3] and per-ray values [B], got "
+                         f"{[tuple(x.shape) for x in (o, d, *per_ray)]}")
     check_batch(b)
 
 
@@ -113,9 +122,7 @@ def closest_tri_small(scene, o, d):
     n_geo [B, 3], mat_id [B] i32); a miss gives inf, -1, 0, 0."""
     if o.device.type == "cpu":
         return closest_tri_small_plain(scene, o, d)
-    _check_rays(scene, o, d)
-    if o.shape != (o.shape[0], 3) or d.shape != o.shape:
-        raise ValueError(f"rays must be [B, 3], got {tuple(o.shape)}, {tuple(d.shape)}")
+    check_rays(scene, o, d)
     from pathtracer_tpu_torch import kernels
 
     tab = small_table(scene)
@@ -143,9 +150,7 @@ def occluded_tri_small(scene, o, d, t_cut, want_any: bool = False):
     ``t_cut``; hit_any [B] bool when ``want_any``, else None)."""
     if o.device.type == "cpu":
         return occluded_tri_small_plain(scene, o, d, t_cut, want_any)
-    _check_rays(scene, o, d, t_cut)
-    if o.shape != (o.shape[0], 3) or d.shape != o.shape or t_cut.dim() != 1:
-        raise ValueError("rays must be [B, 3] and t_cut [B]")
+    check_rays(scene, o, d, t_cut)
     from pathtracer_tpu_torch import kernels
 
     tab = small_table(scene)

@@ -6,14 +6,15 @@ accumulator and either re-aims in place (same pixel, next sample of its
 chunk) or, once the chunk is done, flushes the chunk's sum into the image
 and takes the next chunk of (pixel, K samples) from a global id counter.
 
-The id space, the spawn chunk K, the Morton spawn order and the per-path
-clamp are the JAX package's, so the set of traced paths, and with the
-counter-based RNG each path's radiance, are the same. What differs: every
-lane whose chunk finished flushes in the same iteration with one
-``index_add_`` (the JAX package holds finished lanes and flushes at most
-one per 4-lane group per iteration, a TPU scatter-cost workaround), and ids
-and counts are int64. Only the iteration count and the order of float
-summation into the image differ.
+The id space, the spawn chunk K, the Morton spawn order, the per-path
+clamp and the ray sort are the JAX package's, so the set of traced paths,
+and with the counter-based RNG each path's radiance, are the same. What
+differs: every lane whose chunk finished flushes in the same iteration with
+one ``index_add_`` (the JAX package holds finished lanes and flushes at most
+one per 4-lane group per iteration, a TPU scatter-cost workaround), ids and
+counts are int64, and the sort carries ``depth`` as its own tensor (JAX packs
+it into 8 bits of a flags word, which ``max_depth >= 256`` overflows). Only
+the iteration count and the order of float summation into the image differ.
 """
 
 from __future__ import annotations
@@ -24,6 +25,65 @@ from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.camera_rays import generate_rays, ray_frame_tensors
 from pathtracer_tpu_torch.ops.integrator import bounce_core
 from pathtracer_tpu_torch.ops.intersect import resolve_intersector
+
+# Ray-sort grid cells per axis (16 -> a 12-bit Morton cell), the JAX
+# package's default.
+_SORT_GRID = 16.0
+
+
+def _spread3(x, bits: int = 3):
+    """Spread the low ``bits`` bits of ``x`` with 2-bit gaps (3D Morton)."""
+    r = x & 1
+    for i in range(1, bits):
+        r = r | (((x >> i) & 1) << (3 * i))
+    return r
+
+
+def _sort_key(o, d, alive, lo, inv_extent):
+    """[B] int64 coherence key, equal to the JAX package's u32 key in its
+    default cell-major order: the dead bit | the Morton cell of the ray
+    origin on a _SORT_GRID^3 grid over the scene box | the 3-bit direction
+    octant.
+
+    Lanes sorted by it fill the shortlist's ray blocks with rays that share
+    a cell and an octant; dead lanes gather at the end, where their blocks
+    pass the kernel's root pre-test in one step.
+    """
+    g = _SORT_GRID
+    bits = max(1, int(g - 1).bit_length())
+    cell = torch.clamp((o - lo) * inv_extent * g, 0.0, g - 1.0).to(torch.int64)
+    morton = (
+        (_spread3(cell[:, 0], bits) << 2)
+        | (_spread3(cell[:, 1], bits) << 1)
+        | _spread3(cell[:, 2], bits)
+    )
+    octant = ((d[:, 0] < 0.0).to(torch.int64) * 4
+              + (d[:, 1] < 0.0).to(torch.int64) * 2
+              + (d[:, 2] < 0.0).to(torch.int64))
+    dead = (~alive).to(torch.int64)
+    return (dead << (3 * bits + 3)) | (morton << 3) | octant
+
+
+def _sort_bounds(scene):
+    """(lo [3], 1 / extent [3]) of the scene's valid triangles: the sort
+    grid's box."""
+    pts = torch.cat([scene.tri_v0, scene.tri_v0 + scene.tri_e1,
+                     scene.tri_v0 + scene.tri_e2])
+    valid3 = scene.tri_valid.repeat(3)[:, None]
+    lo = torch.where(valid3, pts, torch.inf).amin(dim=0)
+    hi = torch.where(valid3, pts, -torch.inf).amax(dim=0)
+    return lo, 1.0 / torch.clamp(hi - lo, min=1e-12)
+
+
+def sort_rays_on(settings, scene) -> bool:
+    """Whether the pool sorts its lanes: ``ray_sort="on"``, or ``"auto"``
+    with a shortlist intersector (whose ray blocks gain from coherence; the
+    brute sweeps cost the same in any lane order)."""
+    if settings.ray_sort not in ("auto", "on", "off"):
+        raise ValueError(f"unknown ray_sort {settings.ray_sort!r}")
+    method = resolve_intersector(settings, scene)
+    return settings.ray_sort == "on" or (
+        settings.ray_sort == "auto" and method in ("shortlist", "shortlist_pallas"))
 
 
 def _compact_bits(x):
@@ -77,17 +137,6 @@ def _spawn_order_morton(settings, n_pixels: int) -> bool:
     )
 
 
-def _check_pool_settings(settings, scene) -> None:
-    resolve_intersector(settings, scene)  # raises for unported routes
-    if settings.ray_sort == "on":
-        raise NotImplementedError(
-            "ray_sort='on' is not ported yet (ROADMAP queue item 6, the pool "
-            "ray sort); 'auto' resolves to off for the ported intersectors"
-        )
-    if settings.ray_sort not in ("auto", "off"):
-        raise ValueError(f"unknown ray_sort {settings.ray_sort!r}")
-
-
 def render_pool(
     scene,
     frame,
@@ -113,8 +162,14 @@ def render_pool(
     ``n_ids`` is the slice length, ``id_offset`` shifts local ids to global
     ones and must be a multiple of K, and ``id_limit`` caps the local id
     count for a ragged final slice.
+
+    With the ray sort on (``sort_rays_on``) the lanes are reordered by
+    ``_sort_key`` at the top of every iteration. The pool is lane-anonymous
+    (randomness is keyed on each lane's (pixel, sample), chunks come from a
+    global counter, flushes go by pixel), so the sort changes neither the
+    traced rays nor the iteration count, only the image's summation order.
     """
-    _check_pool_settings(settings, scene)
+    sort_rays = sort_rays_on(settings, scene)
     device = scene.device
     k_chunk = resolve_spawn_chunk(settings, n_pixels, rays_per_pixel)
     spp_pad = -(-rays_per_pixel // k_chunk) * k_chunk
@@ -158,8 +213,17 @@ def render_pool(
     next_id = b * k_chunk
     n_rays = torch.zeros((), dtype=torch.int64, device=device)
     iters = 0
+    if sort_rays:
+        sort_lo, sort_inv = _sort_bounds(scene)
 
     while bool(torch.any(alive)):
+        if sort_rays:
+            perm = torch.sort(_sort_key(o, d, alive, sort_lo, sort_inv),
+                              stable=True).indices
+            (o, d, beta, radiance, acc, alive, spec, pixel, sample, depth,
+             chunk_left) = (x[perm] for x in (o, d, beta, radiance, acc, alive,
+                                              spec, pixel, sample, depth,
+                                              chunk_left))
         was_alive = alive
         o, d, beta, radiance, alive, spec, n = bounce_core(
             scene, settings, o, d, beta, radiance, alive, spec,

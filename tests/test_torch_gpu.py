@@ -5,8 +5,9 @@ without one. On a machine with a card and without JAX:
     PT_TPU_TEST_REAL_DEVICE=1 python -m pytest tests/test_torch_gpu.py -m gpu
 
 (the variable keeps tests/conftest.py from configuring JAX). Tolerances: the
-kernel is bit-equal to its plain version on the card; renders as in
-chip_smoke.py phase 5.
+kernels' t is bit-equal to their plain versions' on the card (for the
+shortlist kernel also to the brute sweep's), ids and flags equal; renders as
+in chip_smoke.py phase 5.
 """
 
 import numpy as np
@@ -16,6 +17,9 @@ import torch
 from pathtracer_tpu_torch.models import procedural
 from pathtracer_tpu_torch.models.pack import pack_scene
 from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
+from pathtracer_tpu_torch.ops import intersect as tint
+from pathtracer_tpu_torch.ops import intersect_shortlist as twin
+from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist
 from pathtracer_tpu_torch.ops import intersect_small as small
 from pathtracer_tpu_torch.render import render_stats
 
@@ -76,3 +80,34 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         small.closest_tri_small(scene, o.double(), d.double())
     with pytest.raises(ValueError):
         small.closest_tri_small(scene, o.t().contiguous().t(), d)
+
+
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) - 1])
+def test_shortlist_kernel_equals_twin_and_brute_on_card(cuda, n):
+    scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh(40, 28)), cuda)
+    o, d = _rays(cuda, n)
+    before = dict(shortlist.launches)
+    t, tri_id = shortlist.closest_tri_shortlist_kernel(scene, o, d)
+    t_w, id_w = twin.closest_tri_shortlist(scene, o, d)
+    t_b, id_b = tint.closest_tri_brute(scene, o, d)
+    hit = torch.isfinite(t_b)
+    assert torch.equal(t, t_w) and torch.equal(t, t_b)
+    assert torch.equal(tri_id[hit], id_w[hit]) and torch.equal(tri_id[hit], id_b[hit])
+    assert (tri_id[~hit] == -1).all()
+    t_cut = torch.where(hit, t_b, 1.0) * 0.8
+    occ = shortlist.occluded_tri_shortlist_kernel(scene, o, d, t_cut)
+    assert torch.equal(occ, twin.occluded_tri_shortlist(scene, o, d, t_cut))
+    assert torch.equal(occ, tint._occluded_tri_brute(scene, o, d, t_cut)[0])
+    assert shortlist.launches["closest"] == before["closest"] + 1
+    assert shortlist.launches["occluded"] == before["occluded"] + 1
+
+
+def test_shortlist_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh(40, 28)), cuda)
+    o, d = _rays(cuda, 64)
+    with pytest.raises(TypeError):
+        shortlist.closest_tri_shortlist_kernel(scene, o.double(), d.double())
+    with pytest.raises(ValueError):
+        shortlist.closest_tri_shortlist_kernel(scene, o.t().contiguous().t(), d)
+    with pytest.raises(ValueError):
+        shortlist.occluded_tri_shortlist_kernel(scene, o, d, torch.ones(64))

@@ -38,9 +38,10 @@ from pathtracer_tpu_torch.render import render_stats
 SIZE = dict(width=16, height=16, samples_per_pixel=2, max_depth=17)
 
 
-def scenes(glossy: bool = False):
-    """(JAX Scene, port Scene, camera) of one packed Cornell box."""
-    packed = pack_scene(procedural.cornell_box_mesh(glossy_tall_box=glossy))
+def scenes(glossy: bool = False, mesh=None):
+    """(JAX Scene, port Scene, camera) of one packed mesh, by default the
+    Cornell box."""
+    packed = pack_scene(mesh or procedural.cornell_box_mesh(glossy_tall_box=glossy))
     return _to_device(packed), scene_from_packed(packed), procedural.cornell_box_camera()
 
 
@@ -59,10 +60,11 @@ def jax_scan_render(jscene, camera, st):
     return np.asarray(acc / st.samples_per_pixel).reshape(st.height, st.width, 3), n
 
 
-def torch_parity(scheduler: str, glossy: bool = False, **kw):
-    """Render with both packages; assert equal rays traced and images within
-    the stated bounds. Returns the port's (image, rays traced)."""
-    jscene, scene, camera = scenes(glossy)
+def torch_parity(scheduler: str, glossy: bool = False, mesh=None, **kw):
+    """Render ``mesh`` (default: the Cornell box) with both packages; assert
+    equal rays traced and images within the stated bounds. Returns the
+    port's (image, rays traced)."""
+    jscene, scene, camera = scenes(glossy, mesh)
     settings = dict(SIZE, scheduler=scheduler, **kw)
     jst, st = JaxSettings(**settings), RenderSettings(**settings)
     if scheduler == "regen":

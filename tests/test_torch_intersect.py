@@ -192,25 +192,33 @@ def _stub(device: str, num_tris: int, padded: int):
         ("cuda", 36, 128, "small_pallas"),
         ("cuda", 256, 256, "small_pallas"),
         ("cuda", 257, 384, "brute"),
-        ("cuda", 2000, 2048, NotImplementedError),
-        ("cpu", 2300, 2560, NotImplementedError),
+        ("cuda", 2000, 2048, "shortlist_pallas"),
+        ("cpu", 2300, 2560, "shortlist"),
     ],
 )
 def test_resolve_auto(device, num_tris, padded, want):
     st = RenderSettings()
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tint.resolve_intersector(st, _stub(device, num_tris, padded))
-    else:
-        assert tint.resolve_intersector(st, _stub(device, num_tris, padded)) == want
+    assert tint.resolve_intersector(st, _stub(device, num_tris, padded)) == want
 
 
-@pytest.mark.parametrize("method", ["shortlist", "shortlist_pallas", "bvh", "pallas",
-                                    "cluster"])
+@pytest.mark.parametrize("method", ["bvh", "pallas", "cluster"])
 def test_unported_intersectors_raise(method):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tint.resolve_intersector(RenderSettings(intersector=method),
                                  _stub("cpu", 36, 128))
+
+
+def test_shortlist_kernel_needs_a_cuda_scene():
+    """An explicit "shortlist_pallas" on a CPU scene raises rather than run
+    the plain twin; "shortlist" is that twin and resolves anywhere."""
+    with pytest.raises(ValueError, match="CUDA"):
+        tint.resolve_intersector(RenderSettings(intersector="shortlist_pallas"),
+                                 _stub("cpu", 2300, 2560))
+    for device in ("cpu", "cuda"):
+        assert tint.resolve_intersector(RenderSettings(intersector="shortlist"),
+                                        _stub(device, 36, 128)) == "shortlist"
+    assert tint.resolve_intersector(RenderSettings(intersector="shortlist_pallas"),
+                                    _stub("cuda", 36, 128)) == "shortlist_pallas"
 
 
 def test_kernel_wrapper_never_takes_plain_path_off_cpu(scenes):
