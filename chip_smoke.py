@@ -33,11 +33,31 @@ non-zero):
                 "shortlist" (the plain twin, rays sorted): equal rays traced,
                 image MSE <= 1e-6; "auto" with ray_sort "off": equal rays
                 traced in equal pool iterations; wall time and rays/s of each.
+10. oracles  -- the tiled kernel ("pallas") against its plain version (the
+                brute sweep) and the cluster kernel ("cluster") against its
+                plain twin and brute, on the 262,144 rays of phase 3 and on
+                262,143, on the Cornell box, the band stand-in (1,116
+                triangles, 1,152 padded) and both torus stand-ins: t 0 ULP,
+                ids equal on hit lanes; all timed.
+11. band     -- the band stand-in at 512^2, spp 4, depth 17, regen, 2^18
+                lanes through "auto", "pallas", "cluster", "shortlist_pallas"
+                and "brute", each once after a warm-up: equal rays traced,
+                image MSE <= 1e-6 against brute; "auto" launched the kernel it
+                resolves to; wall time and rays/s of each.
+12. cli-oracles -- the CLI renders the band stand-in's files at 128^2, spp 4
+                with --intersector pallas and with --intersector cluster; each
+                launches its kernel.
+
+``--band-pairs N`` adds N rounds of phase 11's renders with "pallas",
+"cluster", "shortlist_pallas" and "brute", in turn forward and backward
+order, and prints each route's median and quartile walls and how many rounds
+it beat brute in: the measurement behind ``auto``'s route in the band.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -54,13 +74,28 @@ TIMED_PLAIN = 3  # the shortlist phase's plain twin and brute sweep are slow
 # Image sides of phase 8's CLI render and phase 9's renders.
 CLI_LARGE_SIZE = 128
 LARGE_SIZE = 512
+# Phase 11's routes, and the kernel family each launches.
+BAND_ROUTES = ("auto", "pallas", "cluster", "shortlist_pallas", "brute")
+FAMILY = {"small_pallas": "small", "shortlist_pallas": "shortlist", "pallas": "tiled",
+          "cluster": "cluster", "brute": None}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counts by family."""
+    from pathtracer_tpu_torch.ops import (
+        intersect_cluster,
+        intersect_shortlist_kernel,
+        intersect_small,
+        intersect_tiled,
+    )
+
+    return {"small": intersect_small.launches, "shortlist": intersect_shortlist_kernel.launches,
+            "tiled": intersect_tiled.launches, "cluster": intersect_cluster.launches}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel, intersect_small
-
-    for counts in (intersect_small.launches, intersect_shortlist_kernel.launches):
+    for counts in launch_counts().values():
         for k in counts:
             counts[k] = 0
 
@@ -300,6 +335,19 @@ def tie_report(scene, o, d, got, ref, lanes) -> str:
     return f"{lanes.numel()} lanes differ, {ties} of them at tied t"
 
 
+def assert_same_hits(label, scene, o, d, t, tri, ref_name, ref) -> None:
+    """``t`` 0 ULP from ``ref``'s, ids equal on its hit lanes and -1 on the
+    others."""
+    t_r, id_r = ref
+    ulp = ulp_distance(t, t_r)
+    assert ulp == 0, f"{label}: t differs from {ref_name} by {ulp} ULP"
+    hit = torch.isfinite(t_r)
+    lanes = torch.nonzero((tri != id_r) & hit).squeeze(1)
+    assert lanes.numel() == 0, (
+        f"{label}: tri_id differs from {ref_name}: " + tie_report(scene, o, d, tri, id_r, lanes))
+    assert bool((tri[~hit] == -1).all()), f"{label}: a miss lane's id is not -1"
+
+
 def phase_shortlist(dev):
     from pathtracer_tpu_torch.ops import intersect as tint
     from pathtracer_tpu_torch.ops import intersect_shortlist as twin
@@ -314,15 +362,8 @@ def phase_shortlist(dev):
             refs = {"twin": twin.closest_tri_shortlist(scene, oo, dd),
                     "brute": tint.closest_tri_brute(scene, oo, dd)}
             torch.cuda.synchronize()
-            for ref_name, (t_r, id_r) in refs.items():
-                ulp = ulp_distance(t, t_r)
-                assert ulp == 0, f"{name} n={n}: t differs from {ref_name} by {ulp} ULP"
-                hit = torch.isfinite(t_r)
-                lanes = torch.nonzero((tri != id_r) & hit).squeeze(1)
-                assert lanes.numel() == 0, (
-                    f"{name} n={n}: tri_id differs from {ref_name}: "
-                    + tie_report(scene, oo, dd, tri, id_r, lanes))
-                assert bool((tri[~hit] == -1).all()), f"{name}: a miss lane's id is not -1"
+            for ref_name, ref in refs.items():
+                assert_same_hits(f"{name} n={n}", scene, oo, dd, t, tri, ref_name, ref)
             t_b = refs["brute"][0]
             t_cut = torch.where(torch.isfinite(t_b), t_b, 1.0) * cut_scale[:n]
             occ = sk.occluded_tri_shortlist_kernel(scene, oo, dd, t_cut)
@@ -435,7 +476,174 @@ def phase_large(dev):
     return launches
 
 
-def main() -> int:
+def band_mesh():
+    """The band stand-in: 1,116 triangles, padded to 1,152 as the glossy
+    final's, between the small kernel's 256 and the shortlist's 2048."""
+    from pathtracer_tpu_torch.models.procedural import torus_cornell_mesh
+
+    return torus_cornell_mesh(30, 18)
+
+
+def band_scene(dev):
+    from pathtracer_tpu_torch.models.pack import pack_scene
+    from pathtracer_tpu_torch.models.scene import scene_from_packed
+
+    scene = scene_from_packed(pack_scene(band_mesh()), dev)
+    assert (scene.num_tris, scene.padded_tris) == (1116, 1152), scene.padded_tris
+    return scene
+
+
+def phase_oracles(dev):
+    from pathtracer_tpu_torch.ops import intersect as tint
+    from pathtracer_tpu_torch.ops import intersect_cluster as ic
+    from pathtracer_tpu_torch.ops import intersect_tiled as it
+
+    o, d, _ = smoke_rays(dev)
+    # kernel, its plain version (None: the brute sweep itself)
+    kernels = {"tiled": (it.closest_tri_tiled, None),
+               "cluster": (ic.closest_tri_cluster, ic.closest_tri_cluster_plain)}
+    scenes = [smoke_scenes(dev)[0], ("band1152", band_scene(dev)), *stand_in_scenes(dev)]
+    records = {}
+    for name, scene in scenes:
+        for n in (N_RAYS, N_RAYS - 1):
+            oo, dd = o[:n], d[:n]
+            brute = tint.closest_tri_brute(scene, oo, dd)
+            err = {}
+            for kname, (kernel, plain) in kernels.items():
+                t, tri = kernel(scene, oo, dd)
+                refs = {"brute": brute}
+                if plain is not None:
+                    refs["plain"] = plain(scene, oo, dd)
+                torch.cuda.synchronize()
+                for ref_name, ref in refs.items():
+                    assert_same_hits(f"{kname} {name} n={n}", scene, oo, dd, t, tri,
+                                     ref_name, ref)
+                t_p = refs.get("plain", brute)[0]
+                fin = torch.isfinite(t_p)
+                err[kname] = (t[fin] - t_p[fin]).abs().max().item() if fin.any() else 0.0
+            log("oracles", f"{name} T={scene.num_tris} rays={n} "
+                f"hits={int(torch.isfinite(brute[0]).sum())}: tiled and cluster t 0 ULP "
+                "from their plain versions and brute, ids equal on hit lanes")
+        ms = {
+            "tiled": event_ms(lambda: it.closest_tri_tiled(scene, o, d)),
+            "tiled_plain": event_ms(lambda: tint.closest_tri_brute(scene, o, d), TIMED_PLAIN),
+            "cluster": event_ms(lambda: ic.closest_tri_cluster(scene, o, d)),
+            "cluster_plain": event_ms(lambda: ic.closest_tri_cluster_plain(scene, o, d),
+                                      TIMED_PLAIN),
+        }
+        records[name] = ({"closest": ms["tiled"], "closest_plain": ms["tiled_plain"]},
+                         {"closest": ms["cluster"], "closest_plain": ms["cluster_plain"]},
+                         err)
+        log("oracles", f"{name} at {N_RAYS} rays: tiled {ms['tiled']:.4f} ms vs plain "
+            f"(brute) {ms['tiled_plain']:.4f} ms; cluster {ms['cluster']:.4f} ms vs twin "
+            f"{ms['cluster_plain']:.4f} ms")
+    return records
+
+
+def band_render(dev, size: int = LARGE_SIZE):
+    """Phase 11's render: (run(intersector) -> (image, rays, iterations, wall,
+    launches by family), scene)."""
+    from pathtracer_tpu_torch.models.procedural import cornell_box_camera
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.ops.wavefront import render_regenerative_stats
+
+    scene, camera = band_scene(dev), cornell_box_camera()
+    base = dict(samples_per_pixel=4, max_depth=17, rr_prob=0.9, scheduler="regen",
+                batch_size=1 << 18)
+
+    def run(intersector, side=size):
+        st = RenderSettings(width=side, height=side, intersector=intersector, **base)
+        reset_launches()
+        (img, n, iters), wall = sync_time(
+            lambda: render_regenerative_stats(scene, camera, st))
+        counted = {fam: dict(c) for fam, c in launch_counts().items()}
+        assert torch.isfinite(img).all(), f"{intersector}: non-finite image"
+        assert img.mean().item() > 0.01, f"{intersector}: image mean {img.mean().item()}"
+        return img, int(n), iters, wall, counted
+
+    return run, scene
+
+
+def phase_band(dev, pairs: int):
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.ops.intersect import resolve_intersector
+
+    run, scene = band_render(dev)
+    resolved = resolve_intersector(RenderSettings(), scene)
+    for route in BAND_ROUTES:
+        run(route, CLI_LARGE_SIZE)  # warm-up: tables, kernels' first launches
+    results = {}
+    for route in BAND_ROUTES:
+        img, n, iters, wall, counted = results[route] = run(route)
+        fam = FAMILY[resolved if route == "auto" else route]
+        for f, counts in counted.items():
+            assert all((v > 0) == (f == fam) for v in counts.values()), (route, counted)
+        log("band", f"{route}{f' (-> {resolved})' if route == 'auto' else ''}: "
+            f"{LARGE_SIZE}^2 spp 4: {wall:.4f} s, {n / wall / 1e6:.2f} Mray/s, rays traced "
+            f"{n}, pool iterations {iters}, kernel launches "
+            f"{ {f: c for f, c in counted.items() if any(c.values())} }")
+    img_b, n_b = results["brute"][:2]
+    for route, (img, n, *_rest) in results.items():
+        assert n == n_b, f"rays traced: {route} {n} vs brute {n_b}"
+        err = torch.mean((img - img_b) ** 2).item()
+        assert err <= 1e-6, f"image MSE {route} vs brute {err}"
+    log("band", f"equal rays traced ({n_b}); image MSE <= 1e-6 against brute for every route")
+    if pairs:
+        band_pairs(run, pairs)
+    return {route: results[route][4][FAMILY[route]] for route in ("pallas", "cluster")}
+
+
+def band_pairs(run, rounds: int) -> None:
+    """``rounds`` rounds of the band render through each candidate and brute,
+    forward and backward in turn; medians, quartiles and wins over the
+    round's brute."""
+    routes = BAND_ROUTES[1:]  # the candidates, then brute
+    walls = {r: [] for r in routes}
+    for i in range(rounds):
+        for route in (routes if i % 2 == 0 else routes[::-1]):
+            walls[route].append(run(route)[3])
+    brute = walls["brute"]
+    for route in routes:
+        q1, med, q3 = np.percentile(walls[route], [25, 50, 75])
+        wins = sum(w < b for w, b in zip(walls[route], brute))
+        log("band-pairs", f"{route}: median {med:.4f} s (quartiles {q1:.4f}-{q3:.4f}), "
+            f"faster than the round's brute in {wins} of {rounds}; walls "
+            f"{[round(w, 4) for w in walls[route]]}")
+    best = min(routes, key=lambda r: np.median(walls[r]))
+    wins = {r: sum(a < b for a, b in zip(walls[best], walls[r])) for r in routes if r != best}
+    log("band-pairs", f"fastest median: {best}; faster than each other route in the same "
+        f"round in {wins} of {rounds}")
+
+
+def phase_cli_oracles(dev):
+    from pathtracer_tpu_torch import cli
+    from pathtracer_tpu_torch.models.procedural import write_mesh_files
+    from pathtracer_tpu_torch.utils.image import read_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = write_mesh_files(tmp, band_mesh(), "band")
+        for route in ("pallas", "cluster"):
+            png = os.path.join(tmp, f"{route}.png")
+            reset_launches()
+            rc = cli.main([ini, "--size", str(CLI_LARGE_SIZE), "--spp", "4", "--out", png,
+                           "--device", str(dev), "--intersector", route])
+            img = read_png(png)
+            counted = {f: dict(c) for f, c in launch_counts().items()}
+            assert rc == 0, f"cli returned {rc}"
+            assert img.shape == (CLI_LARGE_SIZE, CLI_LARGE_SIZE, 3), img.shape
+            assert np.isfinite(img).all() and img.mean() > 0.01, img.mean()
+            for f, counts in counted.items():
+                assert all((v > 0) == (f == FAMILY[route]) for v in counts.values()), counted
+            log("cli-oracles", f"band stand-in {CLI_LARGE_SIZE}^2 spp 4 --intersector {route}: "
+                f"PNG ok (mean {img.mean():.4f}); {FAMILY[route]} kernel launches "
+                f"{counted[FAMILY[route]]}")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    p.add_argument("--band-pairs", type=int, default=0, metavar="N",
+                   help="rounds of the paired band measurement after phase 11")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -467,7 +675,11 @@ def main() -> int:
     sl_ms = phase_shortlist(dev)
     phase_cli_large(dev)
     sl_launches = phase_large(dev)
+    or_ms = phase_oracles(dev)
+    band_launches = phase_band(dev, args.band_pairs)
+    phase_cli_oracles(dev)
 
+    tiled_ms, cluster_ms, or_err = or_ms["band1152"]
     rows = []
     for family, source, replaces, counts, (k_ms, k_err) in (
         ("intersect_small", "pathtracer_tpu_torch/csrc/intersect_small.cu",
@@ -475,8 +687,14 @@ def main() -> int:
         ("intersect_shortlist", "pathtracer_tpu_torch/csrc/intersect_shortlist.cu",
          "pathtracer_tpu/ops/intersect_shortlist_pallas.py:425", sl_launches,
          sl_ms["torus12580"]),
+        ("intersect_tiled", "pathtracer_tpu_torch/csrc/intersect_tiled.cu",
+         "pathtracer_tpu/ops/intersect_pallas.py:120", band_launches["pallas"],
+         (tiled_ms, {"closest": or_err["tiled"]})),
+        ("intersect_cluster", "pathtracer_tpu_torch/csrc/intersect_cluster.cu",
+         "pathtracer_tpu/ops/intersect_cluster.py:182", band_launches["cluster"],
+         (cluster_ms, {"closest": or_err["cluster"]})),
     ):
-        for entry in ("closest", "occluded"):
+        for entry in counts:
             rows.append({"name": f"{family}_{entry}", "route": "cuda", "source": source,
                          "replaces": replaces, "launches": counts[entry],
                          "max_abs_err": k_err[entry], "ms": k_ms[entry],

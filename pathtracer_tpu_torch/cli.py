@@ -32,10 +32,13 @@ def main(argv=None) -> int:
             "shortlist_pallas", "bvh", "pallas", "cluster",
         ),
         help="auto = on a CUDA device the small-scene kernel for <= 256 "
-        "triangles and the shortlist kernel (shortlist_pallas) for >= 2048 "
-        "padded triangles; on the CPU the shortlist's torch twin (shortlist) "
-        "for >= 2048; else the plain brute sweep. bvh, pallas and cluster are "
-        "not ported yet and raise",
+        "triangles, the tiled kernel (pallas) up to 2047 and the shortlist "
+        "kernel (shortlist_pallas) for >= 2048 padded triangles; on the CPU "
+        "the shortlist's torch twin (shortlist) for >= 2048, else the plain "
+        "brute sweep. pallas = the CUDA tiled "
+        "sweep (csrc/intersect_tiled.cu), cluster = the CUDA cluster cull "
+        "(csrc/intersect_cluster.cu); on the CPU both run their plain torch "
+        "versions. bvh is not ported yet and raises",
     )
     p.add_argument(
         "--seed", type=int, default=0,

@@ -61,36 +61,6 @@ namespace {
 constexpr int kRays = 128;     // rays per block = threads per block
 constexpr int kCluster = 128;  // triangles per cluster
 constexpr int kWarps = kRays / 32;
-constexpr float kBigF = 3.0e38f;
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
-}
-
-// NaN-safe direction reciprocal of the JAX slab test.
-__device__ __forceinline__ float inv_dir(float w) {
-  return (w >= 0.0f ? 1.0f : -1.0f) / nan_max(fabsf(w), 1e-12f);
-}
-
-// Slab test of box lo/hi (6 floats: lo.xyz hi.xyz) -> (t_near, t_far).
-__device__ __forceinline__ void slab(const float* box, const Ray& r,
-                                     const float inv[3], float& t_near,
-                                     float& t_far) {
-  const float o[3] = {r.ox, r.oy, r.oz};
-  t_near = -kBigF;
-  t_far = kBigF;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    const float t0 = (box[ax] - o[ax]) * inv[ax];
-    const float t1 = (box[3 + ax] - o[ax]) * inv[ax];
-    t_near = nan_max(t_near, nan_min(t0, t1));
-    t_far = nan_min(t_far, nan_max(t0, t1));
-  }
-}
 
 __host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
 
@@ -142,12 +112,7 @@ __global__ void __launch_bounds__(kRays)
   float best = t0;
   int64_t best_id = -1;
   if (__syncthreads_or(reach)) {
-    for (int k = 0; k < c; ++k) {
-      const float* b = box + 6 * k;
-      slab(b, ray, inv, t_near, t_far);
-      const bool ok = t_far >= t_near && t_far > 0.0f && b[0] <= b[3];
-      enter[tid * cs + k] = ok ? nan_max(t_near, 0.0f) : INFINITY;
-    }
+    for (int k = 0; k < c; ++k) enter[tid * cs + k] = box_enter(box + 6 * k, ray, inv);
     for (int k = tid; k < c; k += kRays) visited[k] = 0;
     best_s[tid] = best;
     __syncthreads();

@@ -1,12 +1,14 @@
-// Ray loading and the Moller-Trumbore test shared by the port's kernels.
+// Ray loading, the Moller-Trumbore test and the slab test shared by the port's
+// kernels.
 //
-// Both intersect_small.cu and intersect_shortlist.cu read triangles from
-// 16-column f32 rows laid out as v0.xyz e1.xyz e2.xyz valid id ..., and both
-// must round t identically: built with -fmad=false and without fast math, the
-// arithmetic below is rounded operation by operation in the order of the JAX
-// sweeps (intersect_small_pallas.py:91-108, intersect_shortlist_pallas.py:275-
-// 293) and of the torch version (ops/intersect.py moller_trumbore), whose
-// separate elementwise kernels never fuse into FMA: t agrees bit for bit.
+// Every kernel reads triangles from 16-column f32 rows laid out as v0.xyz
+// e1.xyz e2.xyz valid id ..., and all must round t identically: built with
+// -fmad=false and without fast math, the arithmetic below is rounded
+// operation by operation in the order of the JAX sweeps
+// (intersect_small_pallas.py:91-108, intersect_shortlist_pallas.py:275-293,
+// intersect_pallas.py:58-79, intersect_cluster.py:125-146) and of the torch
+// version (ops/intersect.py moller_trumbore), whose separate elementwise
+// kernels never fuse into FMA: t agrees bit for bit.
 
 #pragma once
 
@@ -62,6 +64,51 @@ __device__ __forceinline__ bool hit_triangle(const float* __restrict__ row,
   t_out = t;
   return det_ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
          t > kEps && row[9] > 0.5f;
+}
+
+constexpr float kBigF = 3.0e38f;
+
+// Max and min that keep a NaN operand, as jnp.maximum and torch.maximum do
+// (fmaxf and fminf drop it).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+
+// NaN-safe direction reciprocal of the JAX slab tests.
+__device__ __forceinline__ float inv_dir(float w) {
+  return (w >= 0.0f ? 1.0f : -1.0f) / nan_max(fabsf(w), 1e-12f);
+}
+
+// Slab test of box lo/hi (6 floats: lo.xyz hi.xyz) -> (t_near, t_far),
+// starting from -+3e38 as the torch twins' enter_dists does.
+__device__ __forceinline__ void slab(const float* box, const Ray& r,
+                                     const float inv[3], float& t_near,
+                                     float& t_far) {
+  const float o[3] = {r.ox, r.oy, r.oz};
+  t_near = -kBigF;
+  t_far = kBigF;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float t0 = (box[ax] - o[ax]) * inv[ax];
+    const float t1 = (box[3 + ax] - o[ax]) * inv[ax];
+    t_near = nan_max(t_near, nan_min(t0, t1));
+    t_far = nan_min(t_far, nan_max(t0, t1));
+  }
+}
+
+// Slab entry distance of a ray to a box as the cull compares it: max(t_near,
+// 0) where the box is hit (t_far >= t_near, t_far > 0, and lo.x <= hi.x, false
+// for an empty box whose lo = 3e38 > hi = -3e38), +inf elsewhere.
+__device__ __forceinline__ float box_enter(const float* box, const Ray& r,
+                                           const float inv[3]) {
+  float t_near, t_far;
+  slab(box, r, inv, t_near, t_far);
+  const bool ok = t_far >= t_near && t_far > 0.0f && box[0] <= box[3];
+  return ok ? nan_max(t_near, 0.0f) : INFINITY;
 }
 
 }  // namespace

@@ -115,7 +115,8 @@ class RenderSettings:
     use_vertex_normals: bool = False
     # "auto" | "brute" | "small_pallas" (here: the CUDA small-scene kernel) |
     # "shortlist" (the block shortlist's torch twin) | "shortlist_pallas"
-    # (here: the CUDA shortlist kernel); "bvh", "pallas" and "cluster" raise
+    # (here: the CUDA shortlist kernel) | "pallas" (here: the CUDA tiled
+    # sweep) | "cluster" (the CUDA cluster cull); "bvh" raises
     # NotImplementedError (ops.intersect).
     intersector: str = "auto"
     # NEE shadow rays: "fast" (occlusion sweep) | "closest" (full closest hit)
@@ -130,8 +131,8 @@ class RenderSettings:
     seed: int = 0
     # Scheduler: "regen" (regenerative pool) | "scan" (fixed-depth waves)
     scheduler: str = "regen"
-    # Pool lane sorting: "auto" (on for the shortlist intersectors) | "on" |
-    # "off" (ops.wavefront.sort_rays_on).
+    # Pool lane sorting: "auto" (on for the shortlist and cluster
+    # intersectors) | "on" | "off" (ops.wavefront.sort_rays_on).
     ray_sort: str = "auto"
     # Samples per lane spawn in the regenerative pool (0 = auto, see
     # ops.wavefront.resolve_spawn_chunk).

@@ -10,6 +10,9 @@ Port of ``pathtracer_tpu/ops/intersect.py``:
 - the block shortlist for scenes of >= 2048 padded triangles: the CUDA
   kernel (``ops.intersect_shortlist_kernel``) on a CUDA device, its plain
   torch twin (``ops.intersect_shortlist``) on the CPU;
+- the CUDA tiled sweep (``ops.intersect_tiled``, ``intersector="pallas"``)
+  and the CUDA cluster cull (``ops.intersect_cluster``,
+  ``intersector="cluster"``), each with its plain version on the CPU;
 - analytic unit sphere/cube primitives;
 - winner attributes and materials picked by indexing with the winning
   triangle and material ids.
@@ -24,9 +27,10 @@ import dataclasses
 
 import torch
 
+from pathtracer_tpu_torch.ops import intersect_cluster
 from pathtracer_tpu_torch.ops import intersect_shortlist as shortlist
 from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist_kernel
-from pathtracer_tpu_torch.ops import intersect_small
+from pathtracer_tpu_torch.ops import intersect_small, intersect_tiled
 
 EPS_TRI = 1e-8  # the reference's ray-triangle epsilon
 INF = float("inf")
@@ -38,17 +42,23 @@ BRUTE_TILE = 256
 # as the JAX package's does.
 SHORTLIST_MIN_T = 2048
 
-_NOT_PORTED = {
-    "pallas": "ROADMAP queue item 1 (kernel 3, intersect_pallas)",
-    "cluster": "ROADMAP queue item 2 (kernel 4, intersect_cluster)",
-    "bvh": "ROADMAP queue item 8 (the BVH oracle)",
-}
+# ``auto``'s route on a CUDA scene above the small kernel's limit and below
+# SHORTLIST_MIN_T padded triangles: the tiled kernel, the fastest by median
+# of ten paired renders of the 1,152-padded-triangle stand-in on the H100
+# against the cluster and shortlist kernels and the brute sweep (PERF.md).
+BAND_CUDA = "pallas"
 
-# (t [B], tri_id [B] i64) of the closest triangle, by shortlist route.
-_SHORTLIST_CLOSEST = {
+_NOT_PORTED = {"bvh": "ROADMAP queue item 5 (the BVH oracle)"}
+
+# (t [B], tri_id [B] i64) of the closest triangle, by route.
+_CLOSEST = {
     "shortlist": shortlist.closest_tri_shortlist,
     "shortlist_pallas": shortlist_kernel.closest_tri_shortlist_kernel,
+    "pallas": intersect_tiled.closest_tri_tiled,
+    "cluster": intersect_cluster.closest_tri_cluster,
 }
+# Any-hit entry points; the other routes of ``_CLOSEST`` answer occlusion
+# with their closest-hit core, as in the JAX package.
 _SHORTLIST_OCCLUDED = {
     "shortlist": shortlist.occluded_tri_shortlist,
     "shortlist_pallas": shortlist_kernel.occluded_tri_shortlist_kernel,
@@ -165,25 +175,28 @@ def resolve_intersector(settings, scene) -> str:
     ``SHORTLIST_MIN_T`` padded triangles and above, the CUDA shortlist
     kernel ("shortlist_pallas") on a CUDA scene and its plain torch twin
     ("shortlist") on the CPU, as JAX takes its kernel on the accelerator and
-    its XLA twin elsewhere; below, the CUDA small-scene kernel
-    ("small_pallas") for a CUDA scene of at most ``SMALL_MAX_T8`` 8-rounded
-    triangles, else the plain "brute" sweep. An explicit "shortlist_pallas"
-    needs a CUDA scene: on the CPU it raises rather than run the twin.
+    its XLA twin elsewhere. Below, on a CUDA scene, the small-scene kernel
+    ("small_pallas") for at most ``SMALL_MAX_T8`` 8-rounded triangles and
+    ``BAND_CUDA`` above that; on the CPU the plain "brute" sweep, as JAX.
+    "pallas" (the tiled kernel) and "cluster" resolve on any scene: on the
+    CPU their wrappers run the plain versions, as "small_pallas"'s does. An
+    explicit "shortlist_pallas" needs a CUDA scene: on the CPU it raises
+    rather than run the twin.
     """
     method = settings.intersector
     cuda = scene.device.type == "cuda"
     if method == "auto":
         if scene.padded_tris >= SHORTLIST_MIN_T:
             return "shortlist_pallas" if cuda else "shortlist"
+        if not cuda:
+            return "brute"
         t8 = (scene.num_tris + 7) // 8 * 8
-        if cuda and t8 <= intersect_small.SMALL_MAX_T8:
-            return "small_pallas"
-        return "brute"
+        return "small_pallas" if t8 <= intersect_small.SMALL_MAX_T8 else BAND_CUDA
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"intersector={method!r} is not ported yet: {_NOT_PORTED[method]}"
         )
-    if method not in ("brute", "small_pallas", "shortlist", "shortlist_pallas"):
+    if method not in ("brute", "small_pallas", *_CLOSEST):
         raise ValueError(f"unknown intersector {method!r}")
     if method == "shortlist_pallas" and not cuda:
         raise ValueError(
@@ -211,15 +224,16 @@ def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
         )
         if not settings.direct_lighting_only:
             hit_any = occ  # not computed; consumed only by direct lighting
-    elif method in _SHORTLIST_CLOSEST and settings.direct_lighting_only:
-        # Direct lighting consumes "the shadow ray hit anything", which the
-        # cutoff-bounded any-hit loop does not compute: the closest-hit core
-        # answers both, as in the JAX package.
-        t_tri, _ = _SHORTLIST_CLOSEST[method](scene, o, d)
-        occ, hit_any = t_tri < t_cut, torch.isfinite(t_tri)
-    elif method in _SHORTLIST_OCCLUDED:
+    elif method in _SHORTLIST_OCCLUDED and not settings.direct_lighting_only:
         occ = _SHORTLIST_OCCLUDED[method](scene, o, d, t_cut)
-        hit_any = occ  # consumed only by direct lighting, handled above
+        hit_any = occ  # consumed only by direct lighting, handled below
+    elif method in _CLOSEST:
+        # The tiled and cluster kernels have no any-hit form, and direct
+        # lighting consumes "the shadow ray hit anything", which the
+        # shortlist's cutoff-bounded any-hit loop does not compute: the
+        # closest-hit core answers both, as in the JAX package.
+        t_tri, _ = _CLOSEST[method](scene, o, d)
+        occ, hit_any = t_tri < t_cut, torch.isfinite(t_tri)
     else:
         occ, hit_any = _occluded_tri_brute(scene, o, d, t_cut)
 
@@ -368,7 +382,7 @@ def closest_hit(scene, o, d, settings):
         )
         tri_id, mat_id = tri_id.to(torch.int64), mat_id.to(torch.int64)
     else:
-        closest = _SHORTLIST_CLOSEST.get(method, closest_tri_brute)
+        closest = _CLOSEST.get(method, closest_tri_brute)
         t_tri, tri_id = closest(scene, o, d)
         tri_hit = tri_id >= 0
         win = torch.clamp(tri_id, min=0)

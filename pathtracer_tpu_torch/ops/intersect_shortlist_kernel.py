@@ -61,14 +61,15 @@ def kernel_table(scene):
     v0.xyz e1.xyz e2.xyz valid id n.xyz mat_id pad; rows past the scene's
     triangles have valid = 0. Bounds: per 128-triangle cluster lo.xyz hi.xyz
     over its valid triangles (lo > hi for a cluster with none), then the
-    root box over the valid clusters.
+    root box over the valid clusters. The tiled and cluster kernels read the
+    same table (``pack_scene`` pads to a multiple of 128, so it is
+    ``triangle_rows(scene, scene.padded_tris)``); only this kernel has a
+    cluster cap, checked by its wrappers.
     """
     cached = scene.cache.get("shortlist_table")
     if cached is not None:
         return cached
     tp = -(-scene.padded_tris // CLUSTER) * CLUSTER
-    c = tp // CLUSTER
-    check_clusters(c)
     table = triangle_rows(scene, tp)
     lo, hi = twin.cluster_bounds(scene, CLUSTER)
     ok = (lo[:, 0] <= hi[:, 0])[:, None]
@@ -88,6 +89,7 @@ def closest_tri_shortlist_kernel(scene, o, d):
     from pathtracer_tpu_torch import kernels
 
     table, bounds = kernel_table(scene)
+    check_clusters(bounds.shape[0] - 1)
     b = o.shape[0]
     t = torch.empty(b, dtype=torch.float32, device=o.device)
     tri_id = torch.empty(b, dtype=torch.int64, device=o.device)
@@ -114,6 +116,7 @@ def occluded_tri_shortlist_kernel(scene, o, d, t_cut):
     from pathtracer_tpu_torch import kernels
 
     table, bounds = kernel_table(scene)
+    check_clusters(bounds.shape[0] - 1)
     b = o.shape[0]
     occ = torch.empty(b, dtype=torch.uint8, device=o.device)
     if b == 0:

@@ -77,13 +77,15 @@ def _sort_bounds(scene):
 
 def sort_rays_on(settings, scene) -> bool:
     """Whether the pool sorts its lanes: ``ray_sort="on"``, or ``"auto"``
-    with a shortlist intersector (whose ray blocks gain from coherence; the
-    brute sweeps cost the same in any lane order)."""
+    with a shortlist or the cluster intersector, as in the JAX package (their
+    ray blocks gain from coherence; the brute sweeps cost the same in any
+    lane order)."""
     if settings.ray_sort not in ("auto", "on", "off"):
         raise ValueError(f"unknown ray_sort {settings.ray_sort!r}")
     method = resolve_intersector(settings, scene)
     return settings.ray_sort == "on" or (
-        settings.ray_sort == "auto" and method in ("shortlist", "shortlist_pallas"))
+        settings.ray_sort == "auto"
+        and method in ("shortlist", "shortlist_pallas", "cluster"))
 
 
 def _compact_bits(x):

@@ -49,5 +49,5 @@ def test_cli_writes_ini_output_path(ini, monkeypatch):
 
 def test_cli_unported_intersector_raises(ini, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main([ini, "--device", "cpu", "--intersector", "pallas",
+        torch_main([ini, "--device", "cpu", "--intersector", "bvh",
                     "--out", str(tmp_path / "x.png")])

@@ -6,8 +6,8 @@ without one. On a machine with a card and without JAX:
 
 (the variable keeps tests/conftest.py from configuring JAX). Tolerances: the
 kernels' t is bit-equal to their plain versions' on the card (for the
-shortlist kernel also to the brute sweep's), ids and flags equal; renders as
-in chip_smoke.py phase 5.
+shortlist, tiled and cluster kernels also to the brute sweep's), ids and flags
+equal; renders as in chip_smoke.py phase 5.
 """
 
 import numpy as np
@@ -18,9 +18,11 @@ from pathtracer_tpu_torch.models import procedural
 from pathtracer_tpu_torch.models.pack import pack_scene
 from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
 from pathtracer_tpu_torch.ops import intersect as tint
+from pathtracer_tpu_torch.ops import intersect_cluster as cluster
 from pathtracer_tpu_torch.ops import intersect_shortlist as twin
 from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist
 from pathtracer_tpu_torch.ops import intersect_small as small
+from pathtracer_tpu_torch.ops import intersect_tiled as tiled
 from pathtracer_tpu_torch.render import render_stats
 
 pytestmark = pytest.mark.gpu
@@ -111,3 +113,38 @@ def test_shortlist_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         shortlist.closest_tri_shortlist_kernel(scene, o.t().contiguous().t(), d)
     with pytest.raises(ValueError):
         shortlist.occluded_tri_shortlist_kernel(scene, o, d, torch.ones(64))
+
+
+# The band stand-in (1,152 padded triangles) and the 2,276-triangle one.
+ORACLE_MESHES = {"band": (30, 18), "torus2276": (40, 28)}
+
+
+@pytest.mark.parametrize("n", [1 << 16, (1 << 16) - 1])
+@pytest.mark.parametrize("mesh", list(ORACLE_MESHES))
+def test_tiled_and_cluster_kernels_equal_plain_and_brute_on_card(cuda, mesh, n):
+    scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh(*ORACLE_MESHES[mesh])),
+                              cuda)
+    o, d = _rays(cuda, n)
+    before = (dict(tiled.launches), dict(cluster.launches))
+    t_b, id_b = tint.closest_tri_brute(scene, o, d)
+    hit = torch.isfinite(t_b)
+    for kernel, plain in ((tiled.closest_tri_tiled, None),
+                          (cluster.closest_tri_cluster, cluster.closest_tri_cluster_plain)):
+        t, tri_id = kernel(scene, o, d)
+        refs = [(t_b, id_b)] + ([plain(scene, o, d)] if plain else [])
+        for t_r, id_r in refs:
+            assert torch.equal(t, t_r)
+            assert torch.equal(tri_id[hit], id_r[hit])
+        assert (tri_id[~hit] == -1).all()
+    assert tiled.launches["closest"] == before[0]["closest"] + 1
+    assert cluster.launches["closest"] == before[1]["closest"] + 1
+
+
+@pytest.mark.parametrize("kernel", [tiled.closest_tri_tiled, cluster.closest_tri_cluster])
+def test_tiled_and_cluster_wrappers_refuse_what_the_kernel_cannot_take(cuda, kernel):
+    scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh(30, 18)), cuda)
+    o, d = _rays(cuda, 64)
+    with pytest.raises(TypeError):
+        kernel(scene, o.double(), d.double())
+    with pytest.raises(ValueError):
+        kernel(scene, o.t().contiguous().t(), d)

@@ -60,13 +60,15 @@ def jax_scan_render(jscene, camera, st):
     return np.asarray(acc / st.samples_per_pixel).reshape(st.height, st.width, 3), n
 
 
-def torch_parity(scheduler: str, glossy: bool = False, mesh=None, **kw):
+def torch_parity(scheduler: str, glossy: bool = False, mesh=None, jax_kw=None, **kw):
     """Render ``mesh`` (default: the Cornell box) with both packages; assert
-    equal rays traced and images within the stated bounds. Returns the
-    port's (image, rays traced)."""
+    equal rays traced and images within the stated bounds. ``jax_kw``
+    overrides settings of the JAX render only (e.g. an intersector that JAX
+    runs on the CPU only in interpret mode). Returns the port's (image, rays
+    traced)."""
     jscene, scene, camera = scenes(glossy, mesh)
     settings = dict(SIZE, scheduler=scheduler, **kw)
-    jst, st = JaxSettings(**settings), RenderSettings(**settings)
+    jst, st = JaxSettings(**{**settings, **(jax_kw or {})}), RenderSettings(**settings)
     if scheduler == "regen":
         ref, n_ref, _ = jwave.render_regenerative_stats(jscene, camera, jst)
         ref = np.asarray(ref)

@@ -191,7 +191,9 @@ def _stub(device: str, num_tris: int, padded: int):
         ("cpu", 36, 128, "brute"),
         ("cuda", 36, 128, "small_pallas"),
         ("cuda", 256, 256, "small_pallas"),
-        ("cuda", 257, 384, "brute"),
+        ("cuda", 257, 384, "pallas"),
+        ("cuda", 1116, 1152, "pallas"),
+        ("cpu", 1116, 1152, "brute"),
         ("cuda", 2000, 2048, "shortlist_pallas"),
         ("cpu", 2300, 2560, "shortlist"),
     ],
@@ -201,7 +203,7 @@ def test_resolve_auto(device, num_tris, padded, want):
     assert tint.resolve_intersector(st, _stub(device, num_tris, padded)) == want
 
 
-@pytest.mark.parametrize("method", ["bvh", "pallas", "cluster"])
+@pytest.mark.parametrize("method", ["bvh"])
 def test_unported_intersectors_raise(method):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tint.resolve_intersector(RenderSettings(intersector=method),

@@ -22,8 +22,7 @@ def test_scan_direct_lighting_only():
     torch_parity("scan", direct_lighting_only=True)
 
 
-@pytest.mark.parametrize("kw", [{"intersector": "pallas"}, {"rng": "threefry"},
-                                {"intersector": "bvh"}])
+@pytest.mark.parametrize("kw", [{"rng": "threefry"}, {"intersector": "bvh"}])
 def test_unported_settings_raise(kw):
     scene, camera = cornell_box_scene()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
