@@ -26,6 +26,11 @@ non-zero):
                 sweep on the torus stand-ins (12,580 and 2,276 triangles), on
                 the 262,144 rays of phase 3 and on a batch of 262,143: t 0 ULP
                 from both, ids equal on hit lanes, occlusion equal; all timed.
+                Then against brute on a 65,572-triangle stand-in (516
+                clusters, above the earlier 415-cluster cap) on 65,535 of those
+                rays, timed beside its bound; ptxas's registers, shared memory
+                and spills of the kernel and its resident warps per SM; the
+                kernel takes the wrapper's MAX_CLUSTERS and refuses one more.
 8. cli-large -- the CLI renders the 12,580-triangle stand-in's files at 128^2,
                 spp 4 through the shortlist kernel.
 9. large     -- the 12,580-triangle stand-in at 512^2, spp 4, depth 17, regen,
@@ -33,6 +38,9 @@ non-zero):
                 "shortlist" (the plain twin, rays sorted): equal rays traced,
                 image MSE <= 1e-6; "auto" with ray_sort "off": equal rays
                 traced in equal pool iterations; wall time and rays/s of each.
+                One more "auto" render under torch.profiler: shortlist kernel
+                ms per render, device busy (the union of the device's kernel
+                and copy intervals) and its share of the unprofiled walls.
 10. oracles  -- the tiled kernel ("pallas") against its plain version (the
                 brute sweep) and the cluster kernel ("cluster") against its
                 plain twin and brute, on the 262,144 rays of phase 3 and on
@@ -53,13 +61,21 @@ non-zero):
 order, and prints each route's median and quartile walls and how many rounds
 it beat brute in: the measurement behind ``auto``'s route in the band.
 
-The line before the last is the kernels' JSON record; the last line is
+The build phase also builds the port's native host library (the BVH builder
+and OBJ parser, ``pathtracer_tpu_torch/native``) and prints its path.
+
+The line before the last is the kernels' JSON record: per kernel entry point
+its launches in one render of its cell, its error against its plain version,
+its time and its plain version's at 262,144 rays, and the bound of
+``pathtracer_tpu_torch/roofline.py`` for the same inputs with its share of
+the time (no PyTorch call computes closest hit, so ``library_ms`` is null). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -78,6 +94,9 @@ LARGE_SIZE = 512
 BAND_ROUTES = ("auto", "pallas", "cluster", "shortlist_pallas", "brute")
 FAMILY = {"small_pallas": "small", "shortlist_pallas": "shortlist", "pallas": "tiled",
           "cluster": "cluster", "brute": None}
+# Phase 7's scene above the earlier 415-cluster cap, and its batch.
+LARGEST_MESH = (256, 128)  # torus_cornell_mesh: 65,572 triangles, 516 clusters
+LARGEST_RAYS = (1 << 16) - 1
 
 
 def launch_counts() -> dict:
@@ -173,6 +192,30 @@ def ulp_distance(a, b) -> int:
     return int((ia - ib).abs().max()) if ia.numel() else 0
 
 
+def kernel_bound(scene, o, d, t_stop, occluded=None):
+    """(bound ms, "operations" or "bytes") of a closest-hit call (``occluded``
+    None, ``t_stop`` the brute t) or an any-hit call (``t_stop`` the cutoff)
+    on these rays, by ``roofline``'s one definition."""
+    from pathtracer_tpu_torch import roofline
+
+    tests = roofline.tests_needed(scene, o, d, t_stop, occluded)
+    rows = -(-scene.padded_tris // roofline.CLUSTER) * roofline.CLUSTER
+    return roofline.bound_ms(tests, o.shape[0], rows, occluded is not None)
+
+
+def ptxas_report() -> dict:
+    """ptxas's register, shared-memory and spill lines by kernel entry."""
+    from pathtracer_tpu_torch import kernels
+
+    report, entry = {}, "?"
+    for ln in kernels.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "registers" in ln or "spill" in ln:
+            report.setdefault(entry, []).append(ln.split("info    : ")[-1].strip())
+    return report
+
+
 def phase_kernels(dev):
     from pathtracer_tpu_torch.ops import intersect_small as small
 
@@ -208,13 +251,21 @@ def phase_kernels(dev):
             "occluded_plain": event_ms(
                 lambda: small.occluded_tri_small_plain(scene, o, d, t_cut)),
         }
-        records[name] = (ms, err)
+        bound = {"closest": kernel_bound(scene, o, d, tp),
+                 "occluded": kernel_bound(scene, o, d, t_cut, occ_p)}
+        records[name] = (ms, err, bound)
         log("kernel", f"{name} T={scene.num_tris} rays={N_RAYS} hits={hits} "
             f"occluded={n_occ}: t 0 ULP (bit-equal), ids/normals/materials/occ/"
             f"hit_any equal; closest {ms['closest']:.4f} ms vs plain "
             f"{ms['closest_plain']:.4f} ms; occluded {ms['occluded']:.4f} ms vs "
-            f"plain {ms['occluded_plain']:.4f} ms")
+            f"plain {ms['occluded_plain']:.4f} ms; {bound_text(ms, bound)}")
     return records
+
+
+def bound_text(ms, bound) -> str:
+    """Each entry's bound, what bounds it, and the share of it reached."""
+    return "; ".join(f"{k} bound {b:.6f} ms ({by}), share {b / ms[k]:.4f}"
+                     for k, (b, by) in bound.items())
 
 
 def phase_cli(dev):
@@ -349,13 +400,15 @@ def assert_same_hits(label, scene, o, d, t, tri, ref_name, ref) -> None:
 
 
 def phase_shortlist(dev):
+    from pathtracer_tpu_torch import kernels
     from pathtracer_tpu_torch.ops import intersect as tint
     from pathtracer_tpu_torch.ops import intersect_shortlist as twin
     from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
 
     o, d, cut_scale = smoke_rays(dev)
     records = {}
-    for name, scene in stand_in_scenes(dev):
+    scenes = stand_in_scenes(dev)
+    for name, scene in scenes:
         for n in (N_RAYS, N_RAYS - 1):
             oo, dd = o[:n], d[:n]
             t, tri = sk.closest_tri_shortlist_kernel(scene, oo, dd)
@@ -381,6 +434,8 @@ def phase_shortlist(dev):
                        if hits else 0.0,
                        "occluded": (occ.float() - occ_w.float()).abs().max().item()}
                 cut = t_cut
+                bound = {"closest": kernel_bound(scene, o, d, t_b),
+                         "occluded": kernel_bound(scene, o, d, cut, occ_b)}
 
         ms = {
             "closest": event_ms(lambda: sk.closest_tri_shortlist_kernel(scene, o, d)),
@@ -394,12 +449,64 @@ def phase_shortlist(dev):
             "occluded_brute": event_ms(
                 lambda: tint._occluded_tri_brute(scene, o, d, cut), TIMED_PLAIN),
         }
-        records[name] = (ms, err)
+        records[name] = (ms, err, bound)
         log("shortlist", f"{name} at {N_RAYS} rays: closest {ms['closest']:.4f} ms vs "
             f"twin {ms['closest_plain']:.4f} ms vs brute {ms['closest_brute']:.4f} ms; "
             f"occluded {ms['occluded']:.4f} ms vs twin {ms['occluded_plain']:.4f} ms "
-            f"vs brute {ms['occluded_brute']:.4f} ms")
+            f"vs brute {ms['occluded_brute']:.4f} ms; {bound_text(ms, bound)}")
+
+    largest_scene_check(dev, o, d, cut_scale)
+
+    lib = kernels.library()
+    c = scenes[0][1].padded_tris // sk.CLUSTER
+    for entry, lines in ptxas_report().items():
+        if "shortlist" in entry:
+            assert not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines), lines
+            log("shortlist", f"ptxas {entry}: {'; '.join(lines)}")
+    for any_hit, entry in ((0, "closest"), (1, "occluded")):
+        # The wrapper's limit is the kernel's: it takes MAX_CLUSTERS, not one more.
+        assert lib.pt_shortlist_blocks_per_sm(sk.MAX_CLUSTERS, any_hit) > 0
+        assert lib.pt_shortlist_blocks_per_sm(sk.MAX_CLUSTERS + 1, any_hit) < 0
+        blocks = lib.pt_shortlist_blocks_per_sm(c, any_hit)
+        assert blocks > 0, f"occupancy query failed: {blocks}"
+        p2 = 1 << (c - 1).bit_length()
+        log("shortlist", f"{entry} at {c} clusters: {8 * p2} bytes of dynamic shared "
+            f"memory per block, {blocks} resident blocks of 4 warps per SM = "
+            f"{4 * blocks} warps")
     return records
+
+
+def largest_scene_check(dev, o, d, cut_scale) -> None:
+    """The kernel against brute on a scene above the earlier 415-cluster cap."""
+    from pathtracer_tpu_torch.models.pack import pack_scene
+    from pathtracer_tpu_torch.models.procedural import torus_cornell_mesh
+    from pathtracer_tpu_torch.models.scene import scene_from_packed
+    from pathtracer_tpu_torch.ops import intersect as tint
+    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
+
+    scene = scene_from_packed(pack_scene(torus_cornell_mesh(*LARGEST_MESH)), dev)
+    c = scene.padded_tris // sk.CLUSTER
+    assert c > 415, c
+    # Every fourth ray: camera rays and rays from inside the room.
+    lanes = torch.arange(LARGEST_RAYS, device=dev) * 4
+    oo, dd = o[lanes].contiguous(), d[lanes].contiguous()
+    t, tri = sk.closest_tri_shortlist_kernel(scene, oo, dd)
+    ref = tint.closest_tri_brute(scene, oo, dd)
+    torch.cuda.synchronize()
+    assert_same_hits(f"torus{scene.num_tris} n={LARGEST_RAYS}", scene, oo, dd, t, tri,
+                     "brute", ref)
+    t_cut = torch.where(torch.isfinite(ref[0]), ref[0], 1.0) * cut_scale[lanes]
+    occ = sk.occluded_tri_shortlist_kernel(scene, oo, dd, t_cut)
+    occ_b, _ = tint._occluded_tri_brute(scene, oo, dd, t_cut)
+    assert torch.equal(occ, occ_b), "occluded differs from brute above 415 clusters"
+    ms = {"closest": event_ms(lambda: sk.closest_tri_shortlist_kernel(scene, oo, dd)),
+          "occluded": event_ms(lambda: sk.occluded_tri_shortlist_kernel(scene, oo, dd, t_cut))}
+    bound = {"closest": kernel_bound(scene, oo, dd, ref[0]),
+             "occluded": kernel_bound(scene, oo, dd, t_cut, occ_b)}
+    log("shortlist", f"torus{scene.num_tris} ({c} clusters) rays={LARGEST_RAYS} "
+        f"hits={int(torch.isfinite(t).sum())} occluded={int(occ.sum())}: t 0 ULP from "
+        f"brute, ids equal on hit lanes, occlusion equal to brute; closest "
+        f"{ms['closest']:.4f} ms, occluded {ms['occluded']:.4f} ms; {bound_text(ms, bound)}")
 
 
 def phase_cli_large(dev):
@@ -473,7 +580,45 @@ def phase_large(dev):
     log("large", f"{LARGE_SIZE}^2: equal rays traced ({plain[1]}); image MSE "
         f"kernel vs twin {err:.3e}; {LARGE_SIZE}^2 ray sort off: equal rays ({unsorted[1]}) "
         f"and iterations ({unsorted[2]}); kernel walls {kernel[3]:.4f}, {again[3]:.4f} s")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = run("auto (kernel), profiled", LARGE_SIZE)
+    assert profiled[1:3] == kernel[1:3], "the profiled render traced other rays"
+    spans = device_spans(prof)
+    busy_us, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    sl = shortlist_spans(spans)
+    assert all(len(sl[k]) == profiled[4][f"shortlist_{k}"] for k in sl), (
+        {k: len(v) for k, v in sl.items()}, profiled[4])
+    wall = float(np.median([kernel[3], again[3]]))
+    sl_ms = {k: sum(v) / 1e3 for k, v in sl.items()}
+    log("large", f"profiled render ({len(spans)} device intervals, "
+        f"{len(spans) / kernel[2]:.1f} per pool iteration): shortlist kernel "
+        f"{sl_ms['closest'] + sl_ms['occluded']:.3f} ms per render (closest "
+        f"{sl_ms['closest']:.3f} ms in {len(sl['closest'])} launches, occluded "
+        f"{sl_ms['occluded']:.3f} ms in {len(sl['occluded'])}); device busy "
+        f"{busy_us / 1e3:.3f} ms, busy share {busy_us / 1e3 / (wall * 1e3):.4f} of the "
+        f"unprofiled median wall {wall:.4f} s")
     return launches
+
+
+def device_spans(prof) -> list:
+    """(start us, end us, name) of the device intervals of a torch.profiler
+    run, in start order."""
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def shortlist_spans(spans) -> dict:
+    """The shortlist kernel's durations (us) in ``spans``, by entry."""
+    # The entry's template flag, demangled (<true>) or not (ILb1E).
+    return {k: [b - a for a, b, nm in spans if "shortlist_kernel" in nm
+                and (f"<{flag}>" in nm or f"ILb{int(flag == 'true')}E" in nm)]
+            for k, flag in (("closest", "false"), ("occluded", "true"))}
 
 
 def band_mesh():
@@ -508,6 +653,8 @@ def phase_oracles(dev):
         for n in (N_RAYS, N_RAYS - 1):
             oo, dd = o[:n], d[:n]
             brute = tint.closest_tri_brute(scene, oo, dd)
+            if n == N_RAYS:
+                bound = {"closest": kernel_bound(scene, o, d, brute[0])}
             err = {}
             for kname, (kernel, plain) in kernels.items():
                 t, tri = kernel(scene, oo, dd)
@@ -533,10 +680,12 @@ def phase_oracles(dev):
         }
         records[name] = ({"closest": ms["tiled"], "closest_plain": ms["tiled_plain"]},
                          {"closest": ms["cluster"], "closest_plain": ms["cluster_plain"]},
-                         err)
+                         err, bound)
+        (b, by), = bound.values()
         log("oracles", f"{name} at {N_RAYS} rays: tiled {ms['tiled']:.4f} ms vs plain "
             f"(brute) {ms['tiled_plain']:.4f} ms; cluster {ms['cluster']:.4f} ms vs twin "
-            f"{ms['cluster_plain']:.4f} ms")
+            f"{ms['cluster_plain']:.4f} ms; closest bound {b:.6f} ms ({by}), share tiled "
+            f"{b / ms['tiled']:.4f}, cluster {b / ms['cluster']:.4f}")
     return records
 
 
@@ -659,14 +808,14 @@ def main(argv=None) -> int:
     from pathtracer_tpu_torch import kernels
 
     kernels.library()
-    ptxas, entry = [], "?"
-    for ln in kernels.build_log.splitlines():
-        if "Compiling entry function" in ln:
-            entry = ln.split("'")[1] if "'" in ln else ln
-        elif "registers" in ln:
-            ptxas.append(f"{entry}: {ln.split('info    : ')[-1]}")
+    ptxas = [f"{entry}: {ln}" for entry, lines in ptxas_report().items()
+             for ln in lines if "registers" in ln]
     log("build", f"nvcc built {os.path.basename(kernels.library_path())} in "
         f"{kernels.build_seconds:.2f} s; ptxas: {'; '.join(ptxas)}")
+    from pathtracer_tpu_torch import native
+
+    assert native.get_lib() is not None, "the port's native host library did not load"
+    log("build", f"g++ built and loaded the native host library {native.library_path()}")
 
     ms = phase_kernels(dev)
     phase_cli(dev)
@@ -679,9 +828,9 @@ def main(argv=None) -> int:
     band_launches = phase_band(dev, args.band_pairs)
     phase_cli_oracles(dev)
 
-    tiled_ms, cluster_ms, or_err = or_ms["band1152"]
+    tiled_ms, cluster_ms, or_err, or_bound = or_ms["band1152"]
     rows = []
-    for family, source, replaces, counts, (k_ms, k_err) in (
+    for family, source, replaces, counts, (k_ms, k_err, k_bound) in (
         ("intersect_small", "pathtracer_tpu_torch/csrc/intersect_small.cu",
          "pathtracer_tpu/ops/intersect_small_pallas.py:176", launches, ms["cornell36"]),
         ("intersect_shortlist", "pathtracer_tpu_torch/csrc/intersect_shortlist.cu",
@@ -689,16 +838,19 @@ def main(argv=None) -> int:
          sl_ms["torus12580"]),
         ("intersect_tiled", "pathtracer_tpu_torch/csrc/intersect_tiled.cu",
          "pathtracer_tpu/ops/intersect_pallas.py:120", band_launches["pallas"],
-         (tiled_ms, {"closest": or_err["tiled"]})),
+         (tiled_ms, {"closest": or_err["tiled"]}, or_bound)),
         ("intersect_cluster", "pathtracer_tpu_torch/csrc/intersect_cluster.cu",
          "pathtracer_tpu/ops/intersect_cluster.py:182", band_launches["cluster"],
-         (cluster_ms, {"closest": or_err["cluster"]})),
+         (cluster_ms, {"closest": or_err["cluster"]}, or_bound)),
     ):
         for entry in counts:
+            bound, by = k_bound[entry]
             rows.append({"name": f"{family}_{entry}", "route": "cuda", "source": source,
                          "replaces": replaces, "launches": counts[entry],
                          "max_abs_err": k_err[entry], "ms": k_ms[entry],
-                         "plain_ms": k_ms[f"{entry}_plain"]})
+                         "plain_ms": k_ms[f"{entry}_plain"], "bound_ms": bound,
+                         "bound_by": by, "bound_share": bound / k_ms[entry],
+                         "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@ child index backpatched — ``packer.ts:91-128``) but index-based and SoA:
 - ``prim_order[T]``      : permutation old->new triangle order
 
 This module is a verbatim copy of ``pathtracer_tpu/models/bvh.py``; only its
-imports point at ``pathtracer_tpu_torch.models``. It is copied, not imported,
+imports point at ``pathtracer_tpu_torch``. It is copied, not imported,
 because ``pathtracer_tpu/models/__init__.py`` imports ``models.scene``,
 which imports flax, and the port runs where JAX and flax are absent.
 """
@@ -147,7 +147,7 @@ def build_bvh_native(
     """
     import ctypes
 
-    from pathtracer_tpu.native import get_lib
+    from pathtracer_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None:

@@ -14,7 +14,7 @@ Conventions (matching the reference's WGSL ray setup,
   width is that times the aspect ratio.
 
 This module is a verbatim copy of ``pathtracer_tpu/models/camera.py``; only its
-imports point at ``pathtracer_tpu_torch.models``. It is copied, not imported,
+imports point at ``pathtracer_tpu_torch``. It is copied, not imported,
 because ``pathtracer_tpu/models/__init__.py`` imports ``models.scene``,
 which imports flax, and the port runs where JAX and flax are absent.
 """
@@ -25,7 +25,7 @@ import dataclasses
 
 import numpy as np
 
-from pathtracer_tpu.utils.math import normalize
+from pathtracer_tpu_torch.utils.math import normalize
 
 
 @dataclasses.dataclass(frozen=True)

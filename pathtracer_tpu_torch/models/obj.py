@@ -17,7 +17,7 @@ Output is index-based (no vertex duplication): positions [V, 3], faces
 indices [F, 3] (-1 where absent).
 
 This module is a verbatim copy of ``pathtracer_tpu/models/obj.py``; only its
-imports point at ``pathtracer_tpu_torch.models``. It is copied, not imported,
+imports point at ``pathtracer_tpu_torch``. It is copied, not imported,
 because ``pathtracer_tpu/models/__init__.py`` imports ``models.scene``,
 which imports flax, and the port runs where JAX and flax are absent.
 """
@@ -29,7 +29,7 @@ import os
 
 import numpy as np
 
-from pathtracer_tpu.utils.math import transform_normals, transform_points
+from pathtracer_tpu_torch.utils.math import transform_normals, transform_points
 
 
 @dataclasses.dataclass
@@ -96,7 +96,7 @@ def _parse_obj_native(obj_text: str):
     """
     import ctypes
 
-    from pathtracer_tpu.native import get_lib
+    from pathtracer_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None:

@@ -16,7 +16,7 @@ Deliberate fixes over the reference:
   unit-cube intersectors the reference left dead in ``src/primitive.wgsl``.
 
 This module is a verbatim copy of ``pathtracer_tpu/models/scenegraph.py``; only its
-imports point at ``pathtracer_tpu_torch.models``. It is copied, not imported,
+imports point at ``pathtracer_tpu_torch``. It is copied, not imported,
 because ``pathtracer_tpu/models/__init__.py`` imports ``models.scene``,
 which imports flax, and the port runs where JAX and flax are absent.
 """
@@ -29,7 +29,7 @@ import xml.etree.ElementTree as ET
 import numpy as np
 
 from pathtracer_tpu_torch.models.camera import Camera
-from pathtracer_tpu.utils.math import (
+from pathtracer_tpu_torch.utils.math import (
     mat4_identity,
     mat4_rot_axis,
     mat4_scale,

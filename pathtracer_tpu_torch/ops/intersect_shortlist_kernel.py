@@ -1,11 +1,12 @@
-"""Block-shortlist closest hit and any-hit for large scenes: the CUDA kernel.
+"""Shortlist closest hit and any-hit for large scenes: the CUDA kernel.
 
 Port of ``pathtracer_tpu/ops/intersect_shortlist_pallas.py``
 (``intersector="shortlist_pallas"``, ``auto``'s choice on a CUDA scene of
 >= 2048 padded triangles). The kernel (``csrc/intersect_shortlist.cu``) takes
-128 rays per block against 128-triangle clusters: a root-box pre-test, a
-resident [128, C] slab entry matrix, and rounds that sweep the nearest cluster
-still improvable for some ray of the block (see the source).
+128 rays per block against 128-triangle clusters: a root-box pre-test, one
+sorted order of the clusters per block by their least slab entry, then a
+walk per warp in that order in which each ray tests a cluster only when it
+enters the cluster's box before its own best ``t`` (see the source).
 
 The wrappers take the plain torch twin (``ops.intersect_shortlist`` with its
 defaults) for tensors on the CPU and launch the kernel for tensors on a CUDA
@@ -21,36 +22,26 @@ from pathtracer_tpu_torch.ops import intersect_shortlist as twin
 from pathtracer_tpu_torch.ops.intersect_small import check_rays, triangle_rows
 
 CLUSTER = 128  # triangles per cluster = rays per block
-_COLS = 16  # f32 columns of a table row
 _BIG_F = 3.0e38
 
-# Shared memory a block may take on an H100 or H200 (232,448 bytes opt-in),
-# less 1 KB for the kernel's static arrays.
-SMEM_BUDGET = 232448 - 1024
+# The kernel keeps 8 bytes of sort key per cluster, padded to a power of two,
+# in shared memory: 128 KB at this limit, 2,097,152 padded triangles. It is
+# the kernel's kMaxClusters (csrc/intersect_shortlist.cu); the card test
+# test_shortlist_cluster_limit_is_the_kernels holds the two equal.
+MAX_CLUSTERS = 16384
 
-
-def smem_bytes(c: int) -> int:
-    """Dynamic shared memory of one block over ``c`` clusters: the staged
-    cluster rows, the boxes, the [128, c | 1] entry matrix and the visited
-    flags (csrc/intersect_shortlist.cu ``smem_bytes``)."""
-    boxes = -(-4 * 6 * (c + 1) // 16) * 16
-    return 4 * CLUSTER * _COLS + boxes + 4 * CLUSTER * (c | 1) + c
-
-
-SHORTLIST_MAX_CLUSTERS = max(c for c in range(1, 1024) if smem_bytes(c) <= SMEM_BUDGET)
 
 # Kernel launches by entry point; only the wrappers below add to it.
 launches = {"closest": 0, "occluded": 0}
 
 
 def check_clusters(c: int) -> None:
-    """The entry matrix of ``c`` clusters must fit one block's shared memory."""
-    if c > SHORTLIST_MAX_CLUSTERS:
+    """The kernel's sort keys of ``c`` clusters must fit its limit."""
+    if c > MAX_CLUSTERS:
         raise ValueError(
-            f"the shortlist kernel takes at most {SHORTLIST_MAX_CLUSTERS} clusters "
-            f"of {CLUSTER} triangles ({SHORTLIST_MAX_CLUSTERS * CLUSTER} padded "
-            f"triangles; its [128, C] entry matrix lives in {SMEM_BUDGET} bytes of "
-            f"shared memory); this scene has {c}"
+            f"the shortlist kernel takes at most MAX_CLUSTERS = {MAX_CLUSTERS} "
+            f"clusters of {CLUSTER} triangles ({MAX_CLUSTERS * CLUSTER} padded "
+            f"triangles); this scene has {c}"
         )
 
 
@@ -64,7 +55,7 @@ def kernel_table(scene):
     root box over the valid clusters. The tiled and cluster kernels read the
     same table (``pack_scene`` pads to a multiple of 128, so it is
     ``triangle_rows(scene, scene.padded_tris)``); only this kernel has a
-    cluster cap, checked by its wrappers.
+    cluster limit, checked by its wrappers.
     """
     cached = scene.cache.get("shortlist_table")
     if cached is not None:

@@ -3,11 +3,14 @@
 The copied numpy modules must pack identical arrays; INI/XML/OBJ files
 written by the port parse identically in both packages; RenderSettings has
 the JAX fields and defaults; scene_from_arrays carries a JAX Scene across;
-the stdlib PNG writer gives PIL's pixels; and the port imports no JAX and,
-of the JAX package, only its jax-free ``native`` and ``utils`` modules.
+the stdlib PNG writer gives PIL's pixels; the port's copy of the native
+BVH builder and OBJ parser gives the JAX package's arrays; and the port
+imports no JAX and nothing of the JAX package, even after building a scene
+from files.
 """
 
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -150,14 +153,20 @@ def test_png_writer_matches_pil(tmp_path):
 
 
 def test_port_imports_no_jax():
+    """Every port module, then a scene loaded from written files (the OBJ
+    parser and the BVH builder run): no JAX and no module of the JAX
+    package is imported."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, sys, tempfile\n"
         "import pathtracer_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "shared = {'pathtracer_tpu', 'pathtracer_tpu.native', 'pathtracer_tpu.utils',\n"
-        "          'pathtracer_tpu.utils.math', 'pathtracer_tpu.utils.image'}\n"
-        "bad = sorted(m for m in sys.modules if m not in shared and m.split('.')[0] in\n"
+        "from pathtracer_tpu_torch.models import procedural, scene\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    mesh = procedural.torus_cornell_mesh(8, 6)\n"
+        "    s = scene.load_scene(procedural.write_mesh_files(tmp, mesh, 'torus'))[0]\n"
+        "assert s.num_tris == 36 + 2 * 8 * 6, s.num_tris\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'pathtracer_tpu'))\n"
         "assert 'pathtracer_tpu_torch.cli' in sys.modules\n"
         "print(bad)\n"
@@ -165,3 +174,30 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_native_copy_matches_jax_package(tmp_path):
+    """The port's native library (built into its own ``_build``) gives the
+    JAX package's BVH arrays and OBJ parse on the same inputs."""
+    from pathtracer_tpu import native as jnative
+    from pathtracer_tpu.models.bvh import build_bvh_native as jax_build_bvh
+    from pathtracer_tpu.models.obj import _parse_obj_native as jax_parse
+    from pathtracer_tpu_torch import native
+    from pathtracer_tpu_torch.models.bvh import build_bvh_native
+    from pathtracer_tpu_torch.models.obj import _parse_obj_native
+
+    assert native.get_lib() is not None and jnative.get_lib() is not None
+    assert native.get_lib()._name == native.library_path()
+    port_dir = os.path.dirname(os.path.dirname(native.__file__))
+    assert os.path.dirname(native.library_path()) == os.path.join(port_dir, "_build")
+    mesh = tproc.torus_cornell_mesh(24, 12)
+    tri = mesh.positions[mesh.faces]
+    lo, hi = tri.min(axis=1), tri.max(axis=1)
+    got, ref = build_bvh_native(lo, hi, 4), jax_build_bvh(lo, hi, 4)
+    assert got is not None and got.num_nodes > 1
+    assert_same(got, ref)
+    tproc.write_mesh_files(str(tmp_path), mesh, "torus")
+    text = (tmp_path / "torus.obj").read_text()
+    got, ref = _parse_obj_native(text), jax_parse(text)
+    assert got is not None and got[2].shape == (mesh.faces.shape[0], 3)
+    assert_same(got, ref)

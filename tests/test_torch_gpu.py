@@ -104,6 +104,33 @@ def test_shortlist_kernel_equals_twin_and_brute_on_card(cuda, n):
     assert shortlist.launches["occluded"] == before["occluded"] + 1
 
 
+def test_shortlist_kernel_takes_more_than_415_clusters(cuda):
+    """A 65,572-triangle stand-in (66,048 padded: 516 clusters, above the
+    earlier shared-memory cap of 415): the kernel equals the brute sweep."""
+    scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh(256, 128)), cuda)
+    assert scene.padded_tris // 128 == 516
+    o, d = _rays(cuda)
+    t, tri_id = shortlist.closest_tri_shortlist_kernel(scene, o, d)
+    t_b, id_b = tint.closest_tri_brute(scene, o, d)
+    hit = torch.isfinite(t_b)
+    assert torch.equal(t, t_b) and torch.equal(tri_id[hit], id_b[hit])
+    assert (tri_id[~hit] == -1).all()
+    t_cut = torch.where(hit, t_b, 1.0) * 0.8
+    occ = shortlist.occluded_tri_shortlist_kernel(scene, o, d, t_cut)
+    assert torch.equal(occ, tint._occluded_tri_brute(scene, o, d, t_cut)[0])
+
+
+def test_shortlist_cluster_limit_is_the_kernels(cuda):
+    """The wrapper's MAX_CLUSTERS is the kernel's own limit: the kernel takes
+    that many clusters and refuses one more."""
+    from pathtracer_tpu_torch import kernels
+
+    lib = kernels.library()
+    for any_hit in (0, 1):
+        assert lib.pt_shortlist_blocks_per_sm(shortlist.MAX_CLUSTERS, any_hit) > 0
+        assert lib.pt_shortlist_blocks_per_sm(shortlist.MAX_CLUSTERS + 1, any_hit) < 0
+
+
 def test_shortlist_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh(40, 28)), cuda)
     o, d = _rays(cuda, 64)

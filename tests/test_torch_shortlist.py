@@ -188,18 +188,79 @@ def test_enter_dists_match_jax(scenes, rays):
 def test_kernel_wrapper_refuses_what_it_cannot_launch(scenes):
     """Tensors off the CPU go to the kernel path, which refuses what it
     cannot launch (a tensor on the meta device) instead of taking the twin;
-    a scene above the shared-memory limit is refused by name."""
+    a scene above the kernel's cluster limit is refused by name, and one
+    above the earlier 415-cluster shared-memory cap is not."""
     _, scene = scenes
     o = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         kernel.closest_tri_shortlist_kernel(scene, o, o)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.occluded_tri_shortlist_kernel(scene, o, o, torch.empty(4, device="meta"))
-    kernel.check_clusters(kernel.SHORTLIST_MAX_CLUSTERS)
-    with pytest.raises(ValueError, match=f"at most {kernel.SHORTLIST_MAX_CLUSTERS} clusters"):
-        kernel.check_clusters(kernel.SHORTLIST_MAX_CLUSTERS + 1)
-    assert kernel.smem_bytes(kernel.SHORTLIST_MAX_CLUSTERS) <= kernel.SMEM_BUDGET
-    assert kernel.smem_bytes(kernel.SHORTLIST_MAX_CLUSTERS + 1) > kernel.SMEM_BUDGET
+    assert kernel.MAX_CLUSTERS >= 4096
+    kernel.check_clusters(416)
+    kernel.check_clusters(kernel.MAX_CLUSTERS)
+    with pytest.raises(ValueError, match=f"MAX_CLUSTERS = {kernel.MAX_CLUSTERS} clusters"):
+        kernel.check_clusters(kernel.MAX_CLUSTERS + 1)
+    _no_launches()
+
+
+def _numpy_tests_needed(scene, o, d, t_stop, occluded=None):
+    """``roofline.tests_needed`` by brute force in numpy: per ray and
+    128-triangle cluster, the JAX slab test in float32 against the box of the
+    cluster's valid triangles."""
+    v0, e1, e2 = (getattr(scene, f"tri_{k}").numpy() for k in ("v0", "e1", "e2"))
+    valid = scene.tri_valid.numpy()
+    total = 0
+    for r in range(o.shape[0]):
+        inv = (np.where(d[r] >= 0, 1.0, -1.0).astype(np.float32)
+               / np.maximum(np.abs(d[r]), np.float32(1e-12)))
+        need = 0
+        for c0 in range(0, v0.shape[0], 128):
+            m = valid[c0 : c0 + 128]
+            if not m.any():
+                continue
+            a = v0[c0 : c0 + 128][m]
+            pts = np.concatenate([a, a + e1[c0 : c0 + 128][m], a + e2[c0 : c0 + 128][m]])
+            lo, hi = pts.min(axis=0), pts.max(axis=0)
+            t0, t1 = (lo - o[r]) * inv, (hi - o[r]) * inv
+            t_near = max(np.float32(-3e38), *np.minimum(t0, t1))
+            t_far = min(np.float32(3e38), *np.maximum(t0, t1))
+            if t_far >= t_near and t_far > 0 and max(t_near, 0.0) < t_stop[r]:
+                need += int(m.sum())
+        total += 1 if occluded is not None and occluded[r] else need
+    return total
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit"])
+def test_bound_test_count_matches_numpy_brute_force(scenes, rays, brute, mode):
+    """The bound's count of needed ray/triangle tests equals a count by
+    brute force, for closest hit (up to the brute sweep's t) and any-hit
+    (every cluster before the cutoff, 1 for an occluded ray)."""
+    from pathtracer_tpu_torch import roofline
+
+    _, scene = scenes
+    n = 192
+    o, d, _ = (x[:n] for x in rays)
+    t_b, _, t_cut = (x[:n] for x in brute)
+    to, td = torch.as_tensor(o), torch.as_tensor(d)
+    if mode == "closest":
+        t_stop, occ = t_b, None
+    else:
+        t_stop = t_cut
+        occ = tint._occluded_tri_brute(scene, to, td, t_cut)[0]
+        assert 0 < occ.sum() < n
+    got = roofline.tests_needed(scene, to, td, t_stop, occ)
+    ref = _numpy_tests_needed(scene, o, d, t_stop.numpy(), None if occ is None else occ.numpy())
+    assert got == ref
+    assert n < got < n * 2560
+    any_hit = mode == "any_hit"
+    ops_ms = 46 * got / 67e12 * 1e3
+    bytes_ms = ((24 + (5 if any_hit else 12)) * n + 64 * 2560) / 3.35e12 * 1e3
+    ms, by = roofline.bound_ms(got, n, 2560, any_hit)
+    assert ms == pytest.approx(max(ops_ms, bytes_ms))
+    assert by == ("operations" if ops_ms >= bytes_ms else "bytes")
+    # At the timed batch of 262,144 rays the operations bound it.
+    assert roofline.bound_ms(got * 1365, n * 1365, 2560, any_hit)[1] == "operations"
     _no_launches()
 
 
