@@ -41,28 +41,42 @@ non-zero):
                 One more "auto" render under torch.profiler: shortlist kernel
                 ms per render, device busy (the union of the device's kernel
                 and copy intervals) and its share of the unprofiled walls.
-10. oracles  -- the tiled kernel ("pallas") against its plain version (the
-                brute sweep) and the cluster kernel ("cluster") against its
-                plain twin and brute, on the 262,144 rays of phase 3 and on
+10. oracles  -- the tiled kernel ("pallas"), both entries, against its plain
+                versions (the brute sweeps), the tiled kernel's earlier
+                design (the brute tiled sweep of
+                csrc/baseline/intersect_tiled_sweep.cu, built alone) against
+                brute, and the cluster kernel ("cluster") against its plain
+                twin and brute, on the 262,144 rays of phase 3 and on
                 262,143, on the Cornell box, the band stand-in (1,116
                 triangles, 1,152 padded) and both torus stand-ins: t 0 ULP,
-                ids equal on hit lanes; all timed.
+                ids equal on hit lanes; the any-hit entry's occlusion and
+                hit_any equal brute's, with cutoffs around the nearest hit
+                and with every seventh cutoff 0; all timed, the any-hit entry
+                and the shortlist kernel on the band stand-in too. Then the
+                tiled kernel against brute on phase 7's 516-cluster
+                stand-in at 65,535 rays (no cap), timed; ptxas's registers
+                and spills of the tiled kernel and its resident warps per SM.
 11. band     -- the band stand-in at 512^2, spp 4, depth 17, regen, 2^18
                 lanes through "auto", "pallas", "cluster", "shortlist_pallas"
                 and "brute", each once after a warm-up: equal rays traced,
                 image MSE <= 1e-6 against brute; "auto" launched the kernel it
-                resolves to; wall time and rays/s of each.
+                resolves to; wall time and rays/s of each. One more "auto"
+                render, then one under torch.profiler: tiled kernel ms per
+                render (closest and occluded), device busy and its share of
+                the unprofiled walls, device intervals per pool iteration.
 12. cli-oracles -- the CLI renders the band stand-in's files at 128^2, spp 4
                 with --intersector pallas and with --intersector cluster; each
                 launches its kernel.
 
 ``--band-pairs N`` adds N rounds of phase 11's renders with "pallas",
-"cluster", "shortlist_pallas" and "brute", in turn forward and backward
-order, and prints each route's median and quartile walls and how many rounds
-it beat brute in: the measurement behind ``auto``'s route in the band.
+"pallas" with the pool's ray sort on, "cluster", "shortlist_pallas" and
+"brute", in turn forward and backward order, and prints each route's median
+and quartile walls and how many rounds it beat brute in: the measurement
+behind ``auto``'s route in the band and its ray-sort rule.
 
 The build phase also builds the port's native host library (the BVH builder
-and OBJ parser, ``pathtracer_tpu_torch/native``) and prints its path.
+and OBJ parser, ``pathtracer_tpu_torch/native``) and prints its path, and,
+beside the kernel library, the tiled kernel's earlier design.
 
 The line before the last is the kernels' JSON record: per kernel entry point
 its launches in one render of its cell, its error against its plain version,
@@ -94,6 +108,12 @@ LARGE_SIZE = 512
 BAND_ROUTES = ("auto", "pallas", "cluster", "shortlist_pallas", "brute")
 FAMILY = {"small_pallas": "small", "shortlist_pallas": "shortlist", "pallas": "tiled",
           "cluster": "cluster", "brute": None}
+# --band-pairs candidates beyond BAND_ROUTES, by their settings.
+SORTED_PALLAS = "pallas, rays sorted"
+ROUTE_SETTINGS = {SORTED_PALLAS: {"intersector": "pallas", "ray_sort": "on"}}
+# The tiled kernel's earlier design, built alone under another entry name.
+BASELINE_SOURCE = "baseline/intersect_tiled_sweep.cu"
+BASELINE_ENTRY = "pt_tiled_sweep_closest"
 # Phase 7's scene above the earlier 415-cluster cap, and its batch.
 LARGEST_MESH = (256, 128)  # torus_cornell_mesh: 65,572 triangles, 516 clusters
 LARGEST_RAYS = (1 << 16) - 1
@@ -581,28 +601,13 @@ def phase_large(dev):
         f"kernel vs twin {err:.3e}; {LARGE_SIZE}^2 ray sort off: equal rays ({unsorted[1]}) "
         f"and iterations ({unsorted[2]}); kernel walls {kernel[3]:.4f}, {again[3]:.4f} s")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled = run("auto (kernel), profiled", LARGE_SIZE)
-    assert profiled[1:3] == kernel[1:3], "the profiled render traced other rays"
-    spans = device_spans(prof)
-    busy_us, end = 0.0, float("-inf")
-    for a, b, _ in spans:
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    sl = shortlist_spans(spans)
-    assert all(len(sl[k]) == profiled[4][f"shortlist_{k}"] for k in sl), (
-        {k: len(v) for k, v in sl.items()}, profiled[4])
-    wall = float(np.median([kernel[3], again[3]]))
-    sl_ms = {k: sum(v) / 1e3 for k, v in sl.items()}
-    log("large", f"profiled render ({len(spans)} device intervals, "
-        f"{len(spans) / kernel[2]:.1f} per pool iteration): shortlist kernel "
-        f"{sl_ms['closest'] + sl_ms['occluded']:.3f} ms per render (closest "
-        f"{sl_ms['closest']:.3f} ms in {len(sl['closest'])} launches, occluded "
-        f"{sl_ms['occluded']:.3f} ms in {len(sl['occluded'])}); device busy "
-        f"{busy_us / 1e3:.3f} ms, busy share {busy_us / 1e3 / (wall * 1e3):.4f} of the "
-        f"unprofiled median wall {wall:.4f} s")
+    profiled = profiled_render(
+        lambda: run("auto (kernel), profiled", LARGE_SIZE), "shortlist_kernel",
+        lambda out: {k.removeprefix("shortlist_"): v for k, v in out[4].items()
+                     if k.startswith("shortlist_")})
+    assert profiled[0][1:3] == kernel[1:3], "the profiled render traced other rays"
+    log("large", "profiled render " + profile_text(profiled[1], kernel[2],
+                                                   [kernel[3], again[3]]))
     return launches
 
 
@@ -613,12 +618,47 @@ def device_spans(prof) -> list:
                   if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def shortlist_spans(spans) -> dict:
-    """The shortlist kernel's durations (us) in ``spans``, by entry."""
+def entry_spans(spans, kernel: str = "shortlist_kernel") -> dict:
+    """The durations (us) in ``spans`` of a kernel templated on its any-hit
+    flag (the shortlist or the tiled kernel), by entry."""
     # The entry's template flag, demangled (<true>) or not (ILb1E).
-    return {k: [b - a for a, b, nm in spans if "shortlist_kernel" in nm
+    return {k: [b - a for a, b, nm in spans if kernel in nm
                 and (f"<{flag}>" in nm or f"ILb{int(flag == 'true')}E" in nm)]
             for k, flag in (("closest", "false"), ("occluded", "true"))}
+
+
+def profiled_render(render, kernel: str, launched):
+    """``render()`` under torch.profiler -> (its result, (spans, the durations
+    of ``kernel``'s entries)); each entry's spans must number its launches,
+    ``launched(result)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = render()
+    spans = device_spans(prof)
+    ks = entry_spans(spans, kernel)
+    assert {k: len(v) for k, v in ks.items()} == launched(out), (
+        {k: len(v) for k, v in ks.items()}, launched(out))
+    return out, (spans, ks)
+
+
+def profile_text(profile, iters: int, walls) -> str:
+    """A profiled render's device intervals, its kernel's ms per render by
+    entry, device busy (the union of the device intervals) and its share of
+    the median of the unprofiled ``walls``."""
+    spans, ks = profile
+    busy_us, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    wall = float(np.median(walls))
+    ms = {k: sum(v) / 1e3 for k, v in ks.items()}
+    return (f"({len(spans)} device intervals, {len(spans) / iters:.1f} per pool "
+            f"iteration): kernel {ms['closest'] + ms['occluded']:.3f} ms per render "
+            f"(closest {ms['closest']:.3f} ms in {len(ks['closest'])} launches, occluded "
+            f"{ms['occluded']:.3f} ms in {len(ks['occluded'])}); device busy "
+            f"{busy_us / 1e3:.3f} ms, busy share {busy_us / 1e3 / (wall * 1e3):.4f} of the "
+            f"unprofiled median wall {wall:.4f} s")
 
 
 def band_mesh():
@@ -638,23 +678,91 @@ def band_scene(dev):
     return scene
 
 
-def phase_oracles(dev):
+def start_baseline_build():
+    """Start nvcc on the tiled kernel's earlier design, alone, its entry
+    renamed to BASELINE_ENTRY -> (library path, process)."""
+    from pathtracer_tpu_torch import kernels
+
+    out_dir = os.path.join(kernels.BUILD_DIR, "baseline")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libpt_tiled_sweep.so")
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
+           f"-Dpt_tiled_closest={BASELINE_ENTRY}", "-shared", "-o", so,
+           os.path.join(kernels.CSRC, BASELINE_SOURCE)]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+
+
+def load_baseline(build):
+    """Wait for ``start_baseline_build``'s nvcc -> its loaded entry."""
+    import ctypes
+
+    so, proc = build
+    out, _ = proc.communicate()
+    assert proc.returncode == 0, f"nvcc failed on {BASELINE_SOURCE}:\n{out}"
+    fn = getattr(ctypes.CDLL(so), BASELINE_ENTRY)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [p, p, p, i, i, p, p, p], i
+    return fn
+
+
+def baseline_closest(entry, scene, o, d):
+    """The earlier design's closest hit -> (t, tri_id); it counts no launch
+    (it is not on any path of the port)."""
+    from pathtracer_tpu_torch import kernels
+    from pathtracer_tpu_torch.ops.intersect_shortlist_kernel import kernel_table
+
+    table, _ = kernel_table(scene)
+    b = o.shape[0]
+    t = torch.empty(b, dtype=torch.float32, device=o.device)
+    tri_id = torch.empty(b, dtype=torch.int64, device=o.device)
+    rc = entry(o.data_ptr(), d.data_ptr(), table.data_ptr(), table.shape[0], b, t.data_ptr(),
+               tri_id.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "the tiled kernel's earlier design")
+    return t, tri_id
+
+
+def check_tiled_occluded(label, scene, o, d, t_b, cut_scale):
+    """The any-hit entry, with and without hit_any, equals the brute sweep on
+    cutoffs ``t_b * cut_scale`` and on the same with every seventh cutoff 0
+    -> (the first cutoffs, brute's occlusion on them)."""
     from pathtracer_tpu_torch.ops import intersect as tint
-    from pathtracer_tpu_torch.ops import intersect_cluster as ic
     from pathtracer_tpu_torch.ops import intersect_tiled as it
 
-    o, d, _ = smoke_rays(dev)
+    t_cut = torch.where(torch.isfinite(t_b), t_b, 1.0) * cut_scale
+    parked = t_cut.clone()
+    parked[::7] = 0.0
+    occluded = []
+    for cut in (t_cut, parked):
+        occ_b, any_b = tint._occluded_tri_brute(scene, o, d, cut)
+        occluded.append(occ_b)
+        for want_any in (False, True):
+            occ, hit_any = it.occluded_tri_tiled(scene, o, d, cut, want_any)
+            torch.cuda.synchronize()
+            assert torch.equal(occ, occ_b), f"{label}: tiled occluded differs from brute"
+            if want_any:
+                assert torch.equal(hit_any, any_b), f"{label}: tiled hit_any differs from brute"
+    return t_cut, occluded[0]
+
+
+def phase_oracles(dev, baseline):
+    from pathtracer_tpu_torch.ops import intersect as tint
+    from pathtracer_tpu_torch.ops import intersect_cluster as ic
+    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
+    from pathtracer_tpu_torch.ops import intersect_tiled as it
+
+    o, d, cut_scale = smoke_rays(dev)
     # kernel, its plain version (None: the brute sweep itself)
     kernels = {"tiled": (it.closest_tri_tiled, None),
-               "cluster": (ic.closest_tri_cluster, ic.closest_tri_cluster_plain)}
+               "cluster": (ic.closest_tri_cluster, ic.closest_tri_cluster_plain),
+               "earlier tiled": (lambda sc, oo, dd: baseline_closest(baseline, sc, oo, dd),
+                                 None)}
     scenes = [smoke_scenes(dev)[0], ("band1152", band_scene(dev)), *stand_in_scenes(dev)]
     records = {}
     for name, scene in scenes:
         for n in (N_RAYS, N_RAYS - 1):
             oo, dd = o[:n], d[:n]
             brute = tint.closest_tri_brute(scene, oo, dd)
-            if n == N_RAYS:
-                bound = {"closest": kernel_bound(scene, o, d, brute[0])}
             err = {}
             for kname, (kernel, plain) in kernels.items():
                 t, tri = kernel(scene, oo, dd)
@@ -668,25 +776,103 @@ def phase_oracles(dev):
                 t_p = refs.get("plain", brute)[0]
                 fin = torch.isfinite(t_p)
                 err[kname] = (t[fin] - t_p[fin]).abs().max().item() if fin.any() else 0.0
+            t_cut, occ_b = check_tiled_occluded(f"{name} n={n}", scene, oo, dd, brute[0],
+                                                cut_scale[:n])
             log("oracles", f"{name} T={scene.num_tris} rays={n} "
-                f"hits={int(torch.isfinite(brute[0]).sum())}: tiled and cluster t 0 ULP "
-                "from their plain versions and brute, ids equal on hit lanes")
+                f"hits={int(torch.isfinite(brute[0]).sum())} occluded={int(occ_b.sum())}: "
+                "tiled, its earlier design and cluster t 0 ULP from their plain versions "
+                "and brute, ids equal on hit lanes; tiled occlusion and hit_any equal "
+                "brute's (cutoffs around the hit, and every seventh 0)")
+            if n == N_RAYS:
+                cut = t_cut
+                bound = {"closest": kernel_bound(scene, o, d, brute[0]),
+                         "occluded": kernel_bound(scene, o, d, cut, occ_b)}
+                occ_err = (it.occluded_tri_tiled(scene, o, d, cut)[0].float()
+                           - occ_b.float()).abs().max().item()
+                errors = {"tiled": {"closest": err["tiled"], "occluded": occ_err},
+                          "cluster": {"closest": err["cluster"]}}
         ms = {
             "tiled": event_ms(lambda: it.closest_tri_tiled(scene, o, d)),
             "tiled_plain": event_ms(lambda: tint.closest_tri_brute(scene, o, d), TIMED_PLAIN),
+            "tiled_occluded": event_ms(lambda: it.occluded_tri_tiled(scene, o, d, cut)),
+            "tiled_occluded_plain": event_ms(
+                lambda: tint._occluded_tri_brute(scene, o, d, cut), TIMED_PLAIN),
+            "earlier": event_ms(lambda: baseline_closest(baseline, scene, o, d)),
             "cluster": event_ms(lambda: ic.closest_tri_cluster(scene, o, d)),
             "cluster_plain": event_ms(lambda: ic.closest_tri_cluster_plain(scene, o, d),
                                       TIMED_PLAIN),
         }
-        records[name] = ({"closest": ms["tiled"], "closest_plain": ms["tiled_plain"]},
-                         {"closest": ms["cluster"], "closest_plain": ms["cluster_plain"]},
-                         err, bound)
-        (b, by), = bound.values()
-        log("oracles", f"{name} at {N_RAYS} rays: tiled {ms['tiled']:.4f} ms vs plain "
-            f"(brute) {ms['tiled_plain']:.4f} ms; cluster {ms['cluster']:.4f} ms vs twin "
+        tiled_ms = {"closest": ms["tiled"], "closest_plain": ms["tiled_plain"],
+                    "occluded": ms["tiled_occluded"],
+                    "occluded_plain": ms["tiled_occluded_plain"]}
+        records[name] = (tiled_ms, {"closest": ms["cluster"], "closest_plain": ms["cluster_plain"]},
+                         errors, bound)
+        (b, by), (bo, byo) = bound["closest"], bound["occluded"]
+        log("oracles", f"{name} at {N_RAYS} rays: tiled closest {ms['tiled']:.4f} ms vs its "
+            f"earlier design {ms['earlier']:.4f} ms vs plain (brute) {ms['tiled_plain']:.4f} "
+            f"ms; tiled occluded {ms['tiled_occluded']:.4f} ms vs plain (brute) "
+            f"{ms['tiled_occluded_plain']:.4f} ms; cluster {ms['cluster']:.4f} ms vs twin "
             f"{ms['cluster_plain']:.4f} ms; closest bound {b:.6f} ms ({by}), share tiled "
-            f"{b / ms['tiled']:.4f}, cluster {b / ms['cluster']:.4f}")
+            f"{b / ms['tiled']:.4f}, earlier {b / ms['earlier']:.4f}, cluster "
+            f"{b / ms['cluster']:.4f}; occluded bound {bo:.6f} ms ({byo}), share tiled "
+            f"{bo / ms['tiled_occluded']:.4f}")
+        if name == "band1152":
+            sl = {"closest": event_ms(lambda: sk.closest_tri_shortlist_kernel(scene, o, d)),
+                  "occluded": event_ms(
+                      lambda: sk.occluded_tri_shortlist_kernel(scene, o, d, cut))}
+            log("oracles", f"{name} at {N_RAYS} rays: the shortlist kernel, which culls "
+                f"the same way: closest {sl['closest']:.4f} ms, occluded "
+                f"{sl['occluded']:.4f} ms; {bound_text(sl, bound)}")
+
+    tiled_largest_check(dev, o, d, cut_scale)
+    tiled_occupancy(scenes[1][1])
     return records
+
+
+def tiled_largest_check(dev, o, d, cut_scale) -> None:
+    """The tiled kernel against brute on phase 7's 516-cluster stand-in: no
+    cap."""
+    from pathtracer_tpu_torch.models.pack import pack_scene
+    from pathtracer_tpu_torch.models.procedural import torus_cornell_mesh
+    from pathtracer_tpu_torch.models.scene import scene_from_packed
+    from pathtracer_tpu_torch.ops import intersect as tint
+    from pathtracer_tpu_torch.ops import intersect_tiled as it
+
+    scene = scene_from_packed(pack_scene(torus_cornell_mesh(*LARGEST_MESH)), dev)
+    lanes = torch.arange(LARGEST_RAYS, device=dev) * 4
+    oo, dd = o[lanes].contiguous(), d[lanes].contiguous()
+    label = f"tiled torus{scene.num_tris} n={LARGEST_RAYS}"
+    t, tri = it.closest_tri_tiled(scene, oo, dd)
+    ref = tint.closest_tri_brute(scene, oo, dd)
+    torch.cuda.synchronize()
+    assert_same_hits(label, scene, oo, dd, t, tri, "brute", ref)
+    t_cut, occ_b = check_tiled_occluded(label, scene, oo, dd, ref[0], cut_scale[lanes])
+    ms = {"closest": event_ms(lambda: it.closest_tri_tiled(scene, oo, dd)),
+          "occluded": event_ms(lambda: it.occluded_tri_tiled(scene, oo, dd, t_cut))}
+    bound = {"closest": kernel_bound(scene, oo, dd, ref[0]),
+             "occluded": kernel_bound(scene, oo, dd, t_cut, occ_b)}
+    log("oracles", f"torus{scene.num_tris} ({scene.padded_tris // 128} tiles) "
+        f"rays={LARGEST_RAYS} hits={int(torch.isfinite(t).sum())} occluded="
+        f"{int(occ_b.sum())}: tiled t 0 ULP from brute, ids equal on hit lanes, occlusion "
+        f"and hit_any equal to brute; closest {ms['closest']:.4f} ms, occluded "
+        f"{ms['occluded']:.4f} ms; {bound_text(ms, bound)}")
+
+
+def tiled_occupancy(scene) -> None:
+    """ptxas's registers and spills of the tiled kernel's entries (none may
+    spill) and their resident warps per SM on ``scene``'s tiles."""
+    from pathtracer_tpu_torch import kernels
+
+    for entry, lines in ptxas_report().items():
+        if "tiled_kernel" in entry:
+            assert not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines), lines
+            log("oracles", f"ptxas {entry}: {'; '.join(lines)}")
+    c = scene.padded_tris // 128
+    for any_hit, entry in ((0, "closest"), (1, "occluded")):
+        blocks = kernels.library().pt_tiled_blocks_per_sm(c, any_hit)
+        assert blocks > 0, f"occupancy query failed: {blocks}"
+        log("oracles", f"tiled {entry} at {c} tiles: {blocks} resident blocks of 4 warps "
+            f"per SM = {4 * blocks} warps")
 
 
 def band_render(dev, size: int = LARGE_SIZE):
@@ -700,14 +886,15 @@ def band_render(dev, size: int = LARGE_SIZE):
     base = dict(samples_per_pixel=4, max_depth=17, rr_prob=0.9, scheduler="regen",
                 batch_size=1 << 18)
 
-    def run(intersector, side=size):
-        st = RenderSettings(width=side, height=side, intersector=intersector, **base)
+    def run(route, side=size):
+        kw = ROUTE_SETTINGS.get(route, {"intersector": route})
+        st = RenderSettings(width=side, height=side, **kw, **base)
         reset_launches()
         (img, n, iters), wall = sync_time(
             lambda: render_regenerative_stats(scene, camera, st))
         counted = {fam: dict(c) for fam, c in launch_counts().items()}
-        assert torch.isfinite(img).all(), f"{intersector}: non-finite image"
-        assert img.mean().item() > 0.01, f"{intersector}: image mean {img.mean().item()}"
+        assert torch.isfinite(img).all(), f"{route}: non-finite image"
+        assert img.mean().item() > 0.01, f"{route}: image mean {img.mean().item()}"
         return img, int(n), iters, wall, counted
 
     return run, scene
@@ -737,6 +924,14 @@ def phase_band(dev, pairs: int):
         err = torch.mean((img - img_b) ** 2).item()
         assert err <= 1e-6, f"image MSE {route} vs brute {err}"
     log("band", f"equal rays traced ({n_b}); image MSE <= 1e-6 against brute for every route")
+    again = run("auto")
+    fam = FAMILY[resolved]
+    profiled, profile = profiled_render(lambda: run("auto"), f"{fam}_kernel",
+                                        lambda out: out[4][fam])
+    assert profiled[1:3] == results["auto"][1:3], "the profiled render traced other rays"
+    log("band", f"auto (-> {resolved}) walls {results['auto'][3]:.4f}, {again[3]:.4f} s; "
+        "profiled render " + profile_text(profile, profiled[2],
+                                          [results["auto"][3], again[3]]))
     if pairs:
         band_pairs(run, pairs)
     return {route: results[route][4][FAMILY[route]] for route in ("pallas", "cluster")}
@@ -746,7 +941,7 @@ def band_pairs(run, rounds: int) -> None:
     """``rounds`` rounds of the band render through each candidate and brute,
     forward and backward in turn; medians, quartiles and wins over the
     round's brute."""
-    routes = BAND_ROUTES[1:]  # the candidates, then brute
+    routes = (BAND_ROUTES[1], SORTED_PALLAS, *BAND_ROUTES[2:])  # the candidates, then brute
     walls = {r: [] for r in routes}
     for i in range(rounds):
         for route in (routes if i % 2 == 0 else routes[::-1]):
@@ -807,11 +1002,15 @@ def main(argv=None) -> int:
 
     from pathtracer_tpu_torch import kernels
 
+    baseline_build = start_baseline_build()
     kernels.library()
     ptxas = [f"{entry}: {ln}" for entry, lines in ptxas_report().items()
              for ln in lines if "registers" in ln]
     log("build", f"nvcc built {os.path.basename(kernels.library_path())} in "
         f"{kernels.build_seconds:.2f} s; ptxas: {'; '.join(ptxas)}")
+    baseline = load_baseline(baseline_build)
+    log("build", f"nvcc built the tiled kernel's earlier design ({BASELINE_SOURCE}) as "
+        f"{BASELINE_ENTRY}")
     from pathtracer_tpu_torch import native
 
     assert native.get_lib() is not None, "the port's native host library did not load"
@@ -824,7 +1023,7 @@ def main(argv=None) -> int:
     sl_ms = phase_shortlist(dev)
     phase_cli_large(dev)
     sl_launches = phase_large(dev)
-    or_ms = phase_oracles(dev)
+    or_ms = phase_oracles(dev, baseline)
     band_launches = phase_band(dev, args.band_pairs)
     phase_cli_oracles(dev)
 
@@ -838,10 +1037,10 @@ def main(argv=None) -> int:
          sl_ms["torus12580"]),
         ("intersect_tiled", "pathtracer_tpu_torch/csrc/intersect_tiled.cu",
          "pathtracer_tpu/ops/intersect_pallas.py:120", band_launches["pallas"],
-         (tiled_ms, {"closest": or_err["tiled"]}, or_bound)),
+         (tiled_ms, or_err["tiled"], or_bound)),
         ("intersect_cluster", "pathtracer_tpu_torch/csrc/intersect_cluster.cu",
          "pathtracer_tpu/ops/intersect_cluster.py:182", band_launches["cluster"],
-         (cluster_ms, {"closest": or_err["cluster"]}, or_bound)),
+         (cluster_ms, or_err["cluster"], or_bound)),
     ):
         for entry in counts:
             bound, by = k_bound[entry]

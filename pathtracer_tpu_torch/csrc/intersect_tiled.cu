@@ -1,109 +1,323 @@
-// Tiled brute closest-hit ray/triangle kernel for Hopper (sm_90a):
-// `intersector="pallas"`.
+// Tiled closest-hit and any-hit ray/triangle kernels for Hopper (sm_90a):
+// `intersector="pallas"`, `auto`'s route for 257-2047 padded triangles.
 //
 // Replaces the TPU kernel built by `_make_kernel` of
 // pathtracer_tpu/ops/intersect_pallas.py (run by `_closest_flat`,
 // pl.pallas_call at :120; entry point `closest_tri_pallas`).
 //
-// Contract (the plain torch sweep ops/intersect.closest_tri_brute is the
-// oracle):
-//   t [B] f32 of the nearest accepted triangle, inf on a miss, bit for bit the
-//   brute sweep's; tri_id [B] i64, the smallest id among equal t, -1 on a miss.
-// Inputs: o, d [B,3] f32 contiguous; table [R,16] f32 (ray_triangle.cuh rows,
-//   row i for triangle i), any R >= 1.
+// Contract (the plain torch sweeps ops/intersect.closest_tri_brute and
+// ops/intersect._occluded_tri_brute are the oracles):
+//   closest:  t [B] f32 of the nearest accepted triangle, inf on a miss, bit
+//             for bit the brute sweep's; tri_id [B] i64, the smallest id among
+//             equal t, -1 on a miss.
+//   occluded: occ [B] u8 = some accepted triangle strictly before t_cut;
+//             hit_any [B] u8 (optional) = some triangle accepted at all. These
+//             are the closest entry's t < t_cut and isfinite(t), which the
+//             JAX package answers occlusion with on this route.
+// Inputs: o, d [B,3] f32 and t_cut [B] f32, contiguous; table [C*128, 16] f32
+//   (ray_triangle.cuh rows, row i for triangle i, in packed BVH-leaf order);
+//   bounds [C+1, 6] f32, per 128-row tile lo.xyz hi.xyz over its valid
+//   triangles (lo > hi for a tile without one), the last row the root box:
+//   the shortlist kernel's table and boxes. Any C >= 1, no cap.
 //
-// Design. One thread per ray, 256 rays per block. The block streams the table
-// through shared memory one 128-row tile (8 KB) at a time: each thread holds
-// two float4s of the next tile in registers while the block sweeps the current
-// one, and stores them into the other of two tile buffers, so one barrier per
-// tile suffices. Every ray sweeps a tile's rows in id order with a strict `<`,
-// which keeps the smallest id among equal t within a tile and the earlier tile
-// across tiles: JAX's lowest-lane argmin plus its strict `<` across tiles.
-// Nothing but one tile is resident, so the scene has no size cap. The TPU
-// kernel's 512-ray padding and its [B,1] / [1,T] component layout are not
-// carried over: threads past the batch help stage tiles and write nothing.
+// It computes what the TPU kernel computes (every ray against every row, a
+// running (t, id) minimum), not the way that kernel does it: that kernel, and
+// this one's earlier design, made every ray test every row. A ray of the band
+// needs about two of its 9-16 tiles, so here, per warp and without shared
+// memory or block barriers:
 //
-// What bounds it on the card: per ray, R x ~40 flops on rows read from shared
-// memory as warp broadcasts: compute and latency. Each block reads the whole
-// table (64 bytes a row) from L2 once.
+//  1. Root pre-test: a warp none of whose rays enters the root box before its
+//     bound (best t, or the cutoff) writes its outputs and does no more.
+//  2. Walk, over the tiles in index order: a lane computes its entry to the
+//     tile's box and needs the tile only if the entry is within the slack of
+//     its bound (improvable, the shortlist kernel's rule); a warp skips a
+//     tile no lane needs. A needed tile is swept
+//     - dense (at least kDenseLanes lanes need it): every lane tests the 128
+//       rows in id order against its own ray, the rows read as broadcasts;
+//     - sparse (fewer): the needing rays one at a time, each tested by the
+//       whole warp (4 rows a lane), then a warp argmin of (t, id).
+//     A lane keeps t < best or (t == best and a smaller id), so the id is the
+//     brute sweep's min id whatever order the tiles come in.
+//
+// Why index order: a front-to-back order per warp (each tile's least entry
+// over the warp's rays as a key, the keys sorted across the lanes by
+// shuffles, a stop at the first key no lane admits) saved about as many tests
+// as it cost, and measured 1.5-2.6% slower on the band stand-in (PERF.md):
+// with unsorted rays a warp's lanes need different tiles, so no one order
+// suits them all.
+//
+// Any-hit. A lane's bound is its cutoff, or +inf while hit_any is asked for
+// and no triangle was accepted yet; at its first hit below the cutoff the
+// lane retires (bound 0, which no entry is below). A lane with cutoff 0 and no
+// hit_any to find (a parked lane) tests nothing.
+//
+// Exactness. Culling only drops tests; it never changes a result as long as
+// a tile holding a ray's answer is never skipped. The slab entry and the
+// Moller-Trumbore t round differently, so the cull is widened: a tile counts
+// as entered when its slab interval is empty by less than kSlack of the entry,
+// and is needed when its entry times (1 - kSlack) is within the bound. An
+// extra tile costs tests, never a different t or id. hit_triangle and the
+// slab are ray_triangle.cuh's, built with -fmad=false: t is bit-equal to the
+// brute sweep's in whichever sweep computes it.
+//
+// Rows. The whole table is at most 128 KB in the band (72 KB at 1,152 rows).
+// It is read in 16-byte loads through the read-only path, from L1 or L2: in a
+// dense sweep every lane reads the same row (a broadcast), in a sparse one 32
+// consecutive rows. Staging it in shared memory once per block measured
+// slower at 128 and at 512 threads a block (tiled_variants.py; PERF.md).
+//
+// What bounds it on the card: operations, issued per warp. Per needed (ray,
+// tile), 4 Moller-Trumbore tests a lane (46 flops and an IEEE division each)
+// in a sparse sweep, or a share of 128 in a dense one, and an argmin of 5
+// shuffle rounds; per ray, C slab tests. The tests are roofline.py's work;
+// the slab tests, the argmins, the lanes idle in dense sweeps and the tiles
+// a ray tests before its final t is known are what the kernel does beyond it.
 
 #include "ray_triangle.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;                        // rays per block
-constexpr int kTile = 128;                         // rows per staged tile
-constexpr int kTile4 = kTile * kCols / 4;          // float4s per tile
-constexpr int kPerThread = kTile4 / kBlock;        // float4s each thread copies
-static_assert(kTile4 % kBlock == 0, "a tile must split evenly over the block");
+constexpr int kThreads = 128;                // rays per block = threads per block
+constexpr int kMinBlocks = 1024 / kThreads;  // ask ptxas for 32 resident warps
+constexpr int kTile = 128;                   // rows per tile
+constexpr int kRow4 = kCols / 4;             // float4s per table row
+// A tile needed by at least this many lanes of a warp is swept one ray per
+// lane; below, one ray at a time by the whole warp (the shortlist kernel's
+// threshold: 128 row tests cost the warp about as much as 28 rays' 4 tests
+// and argmin).
+constexpr int kDenseLanes = 28;
+constexpr float kSlack = 1.0f / 4096;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Tile `k`'s float4s owned by this thread; rows past the table are zero
-// (valid = 0, never accepted).
-__device__ __forceinline__ void load_tile(const float4* __restrict__ table4,
-                                          int64_t rows, int k,  // int64: rows * 4
-                                          float4 (&reg)[kPerThread]) {
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int64_t i = static_cast<int64_t>(k) * kTile4 + threadIdx.x + j * kBlock;
-    reg[j] = i < rows * (kCols / 4) ? table4[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// Slab entry of a ray to a tile's box, max(t_near, 0), or +inf where the box
+// is missed, behind the ray, or empty (lo.x > hi.x); an interval empty by
+// less than kSlack of the entry counts as entered.
+__device__ __forceinline__ float tile_enter(const float* box, const Ray& r,
+                                            const float inv[3]) {
+  float t_near, t_far;
+  slab(box, r, inv, t_near, t_far);
+  const float e = nan_max(t_near, 0.0f);
+  const bool ok = t_far >= e * (1.0f - kSlack) && t_far > 0.0f && box[0] <= box[3];
+  return ok ? e : INFINITY;
+}
+
+// A lane at bound `best` needs a tile entered at `e`: closest lanes also take
+// entries equal to best (a later tile may hold an equal t at a smaller id);
+// any-hit lanes only a hit strictly before the bound.
+template <bool kAnyHit>
+__device__ __forceinline__ bool improvable(float e, float best) {
+  const float s = e * (1.0f - kSlack);
+  return kAnyHit ? s < best : (s <= best && e < INFINITY);
+}
+
+// Row j of a tile's rows: the 12 floats v0.xyz e1.xyz e2.xyz valid id n.x in
+// three 16-byte loads.
+__device__ __forceinline__ void load_row(const float4* __restrict__ rows, int j,
+                                         float (&row)[12]) {
+  const float4 a = __ldg(rows + j * kRow4), b = __ldg(rows + j * kRow4 + 1),
+               v = __ldg(rows + j * kRow4 + 2);
+  row[0] = a.x, row[1] = a.y, row[2] = a.z, row[3] = a.w;
+  row[4] = b.x, row[5] = b.y, row[6] = b.z, row[7] = b.w;
+  row[8] = v.x, row[9] = v.y, row[10] = v.z, row[11] = v.w;
+}
+
+// Per-lane state: the bound, the closest lane's id, the any-hit lane's flags.
+struct Lane {
+  float best;   // closest: best t; any-hit: inf, the cutoff, or 0 (retired)
+  int best_id;  // closest: the id at best t, -1 while none
+  float cut;    // any-hit: the cutoff
+  bool occ;     // any-hit: a hit before the cutoff was found
+  bool any;     // any-hit: a hit at all was found
+};
+
+// Keep (t, id) if it is nearer, or as near with a smaller id: the brute
+// sweep's min id among equal t, whatever order the tiles come in.
+__device__ __forceinline__ void keep_nearest(float t, int id, Lane& s) {
+  if (t < s.best || (t == s.best && id < s.best_id)) {
+    s.best = t;
+    s.best_id = id;
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-    tiled_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                         const float* __restrict__ table, int rows, int n,
-                         float* __restrict__ t_out, int64_t* __restrict__ id_out) {
-  __shared__ float4 tiles[2][kTile4];
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  const bool in_batch = r < n;
-  Ray ray = {0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f};
-  if (in_batch) ray = load_ray(o, d, r);
+// An any-hit lane's accepted hit; `below` when its t is before the cutoff.
+__device__ __forceinline__ void take_hit(bool below, Lane& s) {
+  s.any = true;
+  s.occ = s.occ || below;
+  s.best = below ? 0.0f : s.cut;
+}
 
-  const float4* table4 = reinterpret_cast<const float4*>(table);
-  const int n_tiles = (rows + kTile - 1) / kTile;
-  float4 reg[kPerThread];
-  load_tile(table4, rows, 0, reg);
-
-  float best = INFINITY;
-  int64_t best_id = -1;
-  for (int k = 0; k < n_tiles; ++k) {
-    float4* buf = tiles[k & 1];
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) buf[threadIdx.x + j * kBlock] = reg[j];
-    // All threads have swept tile k - 1 before any thread passes here, so the
-    // next store into that buffer (at tile k + 1) is safe.
-    __syncthreads();
-    if (k + 1 < n_tiles) load_tile(table4, rows, k + 1, reg);  // in flight
-    if (in_batch) {
-      const float* rows_s = reinterpret_cast<const float*>(buf);
-      const int base = k * kTile;
-      const int m = min(kTile, rows - base);
-      for (int i = 0; i < m; ++i) {
-        float t;
-        if (hit_triangle(rows_s + i * kCols, ray, t) && t < best) {
-          best = t;
-          best_id = base + i;
-        }
+// Dense sweep: every needing lane tests the tile's rows in id order against
+// its own ray; an any-hit lane stops needing the tile once it retires, and
+// the warp leaves once none needs it.
+template <bool kAnyHit>
+__device__ __forceinline__ void sweep_rays(const float4* __restrict__ rows, int base,
+                                           const Ray& ray, bool need, Lane& s) {
+#pragma unroll 2
+  for (int j = 0; j < kTile; ++j) {
+    float row[12];
+    load_row(rows, j, row);
+    float t;
+    if (need && hit_triangle(row, ray, t)) {
+      if (!kAnyHit) {
+        keep_nearest(t, base + j, s);
+      } else {
+        take_hit(t < s.cut, s);
+        need = s.best > 0.0f;
       }
     }
+    if (kAnyHit && !__any_sync(kFull, need)) break;
   }
-  if (!in_batch) return;
-  t_out[r] = best;
-  id_out[r] = best_id;
+}
+
+// Sparse sweep: the needing lanes' rays one at a time, each tested by the
+// whole warp, lane l taking rows l, l + 32, l + 64 and l + 96 in that order.
+// Closest: a warp argmin of (t, id) gives the ray's nearest hit with the
+// smallest id, which its own lane keeps. Any-hit: two warp votes give whether
+// the ray hit anything and anything before its cutoff.
+template <bool kAnyHit>
+__device__ __forceinline__ void sweep_rows(const float4* __restrict__ rows, int base,
+                                           const Ray& ray, unsigned needing, int lane,
+                                           Lane& s) {
+  while (needing) {
+    const int src = __ffs(needing) - 1;
+    needing &= needing - 1;
+    const Ray q = {__shfl_sync(kFull, ray.ox, src), __shfl_sync(kFull, ray.oy, src),
+                   __shfl_sync(kFull, ray.oz, src), __shfl_sync(kFull, ray.dx, src),
+                   __shfl_sync(kFull, ray.dy, src), __shfl_sync(kFull, ray.dz, src)};
+    const float q_bound = __shfl_sync(kFull, kAnyHit ? s.cut : s.best, src);
+    float t_min = INFINITY;
+    int id_min = 0;
+    // Not unrolled: four rows in flight would take the registers that 32
+    // resident warps leave.
+#pragma unroll 1
+    for (int k = 0; k < kTile / 32; ++k) {
+      float row[12];
+      load_row(rows, lane + 32 * k, row);
+      float t;
+      if (hit_triangle(row, q, t) && t < t_min) {
+        t_min = t;
+        id_min = base + lane + 32 * k;
+      }
+    }
+    if (kAnyHit) {
+      const bool hit = __any_sync(kFull, t_min < INFINITY);
+      const bool below = __any_sync(kFull, t_min < q_bound);
+      if (hit && lane == src) take_hit(below, s);
+    } else if (__any_sync(kFull, t_min <= q_bound && t_min < INFINITY)) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ot = __shfl_xor_sync(kFull, t_min, off);
+        const int oi = __shfl_xor_sync(kFull, id_min, off);
+        if (ot < t_min || (ot == t_min && oi < id_min)) {
+          t_min = ot;
+          id_min = oi;
+        }
+      }
+      if (lane == src) keep_nearest(t_min, id_min, s);
+    }
+  }
+}
+
+// Visit tile k if some lane needs it, with the sweep its lanes call for.
+template <bool kAnyHit>
+__device__ __forceinline__ void visit(const float4* __restrict__ table4,
+                                      const float* __restrict__ bounds, int k,
+                                      const Ray& ray, const float inv[3], bool live,
+                                      int lane, Lane& s) {
+  const float e = tile_enter(bounds + 6 * static_cast<int64_t>(k), ray, inv);
+  const bool need = live && improvable<kAnyHit>(e, s.best);
+  const unsigned needing = __ballot_sync(kFull, need);
+  if (!needing) return;
+  const float4* rows = table4 + static_cast<int64_t>(k) * kTile * kRow4;
+  if (__popc(needing) >= kDenseLanes)
+    sweep_rays<kAnyHit>(rows, k * kTile, ray, need, s);
+  else
+    sweep_rows<kAnyHit>(rows, k * kTile, ray, needing, lane, s);
+}
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    tiled_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ t_cut, const float* __restrict__ table,
+                 const float* __restrict__ bounds, int c, int n,
+                 float* __restrict__ t_out, int64_t* __restrict__ id_out,
+                 uint8_t* __restrict__ occ_out, uint8_t* __restrict__ any_out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool live = r < n;
+  const float4* table4 = reinterpret_cast<const float4*>(table);
+
+  Ray ray = {0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f};
+  Lane s = {INFINITY, -1, 0.0f, false, false};
+  if (live) {
+    ray = load_ray(o, d, r);
+    if (kAnyHit) {
+      s.cut = t_cut[r];
+      s.best = any_out != nullptr ? INFINITY : s.cut;
+    }
+  }
+  const float inv[3] = {inv_dir(ray.dx), inv_dir(ray.dy), inv_dir(ray.dz)};
+  const float root = tile_enter(bounds + 6 * static_cast<int64_t>(c), ray, inv);
+
+  if (__any_sync(kFull, live && improvable<kAnyHit>(root, s.best))) {
+    for (int k = 0; k < c; ++k) visit<kAnyHit>(table4, bounds, k, ray, inv, live, lane, s);
+  }
+
+  if (!live) return;
+  if (kAnyHit) {
+    occ_out[r] = s.occ;
+    if (any_out != nullptr) any_out[r] = s.any;
+  } else {
+    t_out[r] = s.best;
+    id_out[r] = s.best_id;
+  }
+}
+
+template <bool kAnyHit>
+int launch(const float* o, const float* d, const float* t_cut, const float* table,
+           const float* bounds, int c, int n, float* t, int64_t* tri_id, uint8_t* occ,
+           uint8_t* hit_any, void* stream) {
+  if (n < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>((static_cast<int64_t>(n) + kThreads - 1) / kThreads);
+  tiled_kernel<kAnyHit><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      o, d, t_cut, table, bounds, c, n, t, tri_id, occ, hit_any);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kAnyHit>
+int blocks_per_sm(int c) {
+  if (c < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, tiled_kernel<kAnyHit>, kThreads, 0);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns the first CUDA error.
-int pt_tiled_closest(const float* o, const float* d, const float* table, int rows,
-                     int n, float* t, int64_t* tri_id, void* stream) {
-  if (rows < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = static_cast<int>((static_cast<int64_t>(n) + kBlock - 1) / kBlock);
-  tiled_closest_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, table, rows, n, t, tri_id);
-  return static_cast<int>(cudaGetLastError());
+// Each entry point launches on `stream` and returns the first CUDA error.
+int pt_tiled_closest(const float* o, const float* d, const float* table,
+                     const float* bounds, int c, int n, float* t, int64_t* tri_id,
+                     void* stream) {
+  return launch<false>(o, d, nullptr, table, bounds, c, n, t, tri_id, nullptr, nullptr,
+                       stream);
+}
+
+// hit_any may be null: then it is neither computed nor written.
+int pt_tiled_occluded(const float* o, const float* d, const float* t_cut,
+                      const float* table, const float* bounds, int c, int n,
+                      uint8_t* occ, uint8_t* hit_any, void* stream) {
+  return launch<true>(o, d, t_cut, table, bounds, c, n, nullptr, nullptr, occ, hit_any,
+                      stream);
+}
+
+// Resident blocks of kThreads per SM of the closest (any_hit 0) or any-hit
+// kernel over c tiles, as the runtime computes them for a launch; negative on
+// a CUDA error.
+int pt_tiled_blocks_per_sm(int c, int any_hit) {
+  return any_hit ? blocks_per_sm<true>(c) : blocks_per_sm<false>(c);
 }
 
 }  // extern "C"

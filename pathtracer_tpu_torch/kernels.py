@@ -39,7 +39,9 @@ _SIGNATURES = {
     "pt_shortlist_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_shortlist_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P], _I),
     "pt_shortlist_blocks_per_sm": ([_I, _I], _I),
-    "pt_tiled_closest": ([_P, _P, _P, _I, _I, _P, _P, _P], _I),
+    "pt_tiled_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
+    "pt_tiled_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
+    "pt_tiled_blocks_per_sm": ([_I, _I], _I),
     "pt_cluster_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_error_string": ([_I], ctypes.c_char_p),
 }

@@ -230,7 +230,7 @@ def cornell_box_camera() -> Camera:
 
 
 def cornell_box_scene(max_leaf: int = 8, glossy_tall_box: bool = False,
-                      device="cpu"):
+                      device="cuda"):
     """(Scene, Camera) for the procedural Cornell box on ``device``."""
     from pathtracer_tpu_torch.models.scene import scene_from_packed
 

@@ -4,6 +4,10 @@ Port of ``pathtracer_tpu/models/scene.py``: INI -> XML scene graph ->
 OBJ/MTL meshes -> BVH -> packed buffers -> tensors on one device. Every
 primitive of the scene graph is loaded, as in the JAX package.
 
+The constructors put the scene on the CUDA device unless the caller passes
+another (``device="cpu"``); without a CUDA device they raise rather than
+fall back to the CPU.
+
 ``Scene`` is a plain dataclass (the JAX package's is a flax pytree). Index
 arrays are int64, the dtype torch indexes with; static counts are ints.
 """
@@ -160,13 +164,18 @@ def scene_from_arrays(
     num_analytic: int,
     bvh_depth: int,
     max_leaf_size: int,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """Scene from numpy arrays named as the ``Scene`` fields.
 
     The arrays may be the leaves of the JAX package's ``Scene``, so that
     both packages can be fed one scene.
     """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device for the scene: pass device='cpu' to load it on the CPU"
+        )
     kw = {}
     for name in TENSOR_FIELDS:
         a = np.asarray(arrays[name])
@@ -187,7 +196,7 @@ def scene_from_arrays(
     )
 
 
-def scene_from_packed(packed: PackedScene, device="cpu") -> Scene:
+def scene_from_packed(packed: PackedScene, device="cuda") -> Scene:
     """Move a host ``PackedScene`` onto ``device``."""
     m = packed.materials
     arrays = dict(
@@ -257,7 +266,7 @@ def scene_from_graph(
     asset_root: str,
     max_leaf: int = 8,
     ctm_mode: str = "compat_ref",
-    device="cpu",
+    device="cuda",
 ):
     """Load all meshes/primitives referenced by a scene graph and pack them.
 
@@ -303,7 +312,7 @@ def load_scene(
     scene_root: str | None = None,
     max_leaf: int = 8,
     ctm_mode: str = "compat_ref",
-    device="cpu",
+    device="cuda",
     **setting_overrides,
 ) -> tuple[Scene, Camera, RenderSettings, IniScene]:
     """Full frontend: INI file -> (Scene, Camera, RenderSettings, IniScene)."""

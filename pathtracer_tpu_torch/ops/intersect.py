@@ -10,9 +10,10 @@ Port of ``pathtracer_tpu/ops/intersect.py``:
 - the block shortlist for scenes of >= 2048 padded triangles: the CUDA
   kernel (``ops.intersect_shortlist_kernel``) on a CUDA device, its plain
   torch twin (``ops.intersect_shortlist``) on the CPU;
-- the CUDA tiled sweep (``ops.intersect_tiled``, ``intersector="pallas"``)
-  and the CUDA cluster cull (``ops.intersect_cluster``,
-  ``intersector="cluster"``), each with its plain version on the CPU;
+- the CUDA tiled kernel (``ops.intersect_tiled``, ``intersector="pallas"``,
+  closest hit and any-hit) and the CUDA cluster cull
+  (``ops.intersect_cluster``, ``intersector="cluster"``), each with its
+  plain version on the CPU;
 - analytic unit sphere/cube primitives;
 - winner attributes and materials picked by indexing with the winning
   triangle and material ids.
@@ -48,7 +49,7 @@ SHORTLIST_MIN_T = 2048
 # against the cluster and shortlist kernels and the brute sweep (PERF.md).
 BAND_CUDA = "pallas"
 
-_NOT_PORTED = {"bvh": "ROADMAP queue item 5 (the BVH oracle)"}
+_NOT_PORTED = {"bvh": "ROADMAP queue item 6 (the BVH oracle)"}
 
 # (t [B], tri_id [B] i64) of the closest triangle, by route.
 _CLOSEST = {
@@ -57,8 +58,14 @@ _CLOSEST = {
     "pallas": intersect_tiled.closest_tri_tiled,
     "cluster": intersect_cluster.closest_tri_cluster,
 }
-# Any-hit entry points; the other routes of ``_CLOSEST`` answer occlusion
-# with their closest-hit core, as in the JAX package.
+# Any-hit entry points that also answer hit_any when asked ->
+# (occluded, hit_any or None).
+_OCCLUDED_ANY = {
+    "small_pallas": intersect_small.occluded_tri_small,
+    "pallas": intersect_tiled.occluded_tri_tiled,
+}
+# Any-hit entry points without hit_any; the other routes of ``_CLOSEST``
+# answer occlusion with their closest-hit core, as in the JAX package.
 _SHORTLIST_OCCLUDED = {
     "shortlist": shortlist.occluded_tri_shortlist,
     "shortlist_pallas": shortlist_kernel.occluded_tri_shortlist_kernel,
@@ -218,8 +225,8 @@ def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
     if scene.num_tris == 0:
         occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
         hit_any = occ
-    elif method == "small_pallas":
-        occ, hit_any = intersect_small.occluded_tri_small(
+    elif method in _OCCLUDED_ANY:
+        occ, hit_any = _OCCLUDED_ANY[method](
             scene, o, d, t_cut, want_any=settings.direct_lighting_only
         )
         if not settings.direct_lighting_only:
@@ -228,10 +235,10 @@ def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
         occ = _SHORTLIST_OCCLUDED[method](scene, o, d, t_cut)
         hit_any = occ  # consumed only by direct lighting, handled below
     elif method in _CLOSEST:
-        # The tiled and cluster kernels have no any-hit form, and direct
-        # lighting consumes "the shadow ray hit anything", which the
-        # shortlist's cutoff-bounded any-hit loop does not compute: the
-        # closest-hit core answers both, as in the JAX package.
+        # The cluster kernel has no any-hit form, and direct lighting
+        # consumes "the shadow ray hit anything", which the shortlist's
+        # cutoff-bounded any-hit loop does not compute: the closest-hit core
+        # answers both, as in the JAX package.
         t_tri, _ = _CLOSEST[method](scene, o, d)
         occ, hit_any = t_tri < t_cut, torch.isfinite(t_tri)
     else:

@@ -120,7 +120,7 @@ def pixel_jitter_hash(pixel_ids, sample_ids, seed: int = 0):
 def check_rng(settings) -> None:
     if settings.rng != "hash":
         raise NotImplementedError(
-            f"rng={settings.rng!r} is not ported yet (ROADMAP queue item 1, "
+            f"rng={settings.rng!r} is not ported yet (ROADMAP queue item 2, "
             "the threefry oracle); use rng='hash'"
         )
 

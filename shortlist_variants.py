@@ -59,13 +59,15 @@ def variants() -> dict:
     return out
 
 
-def build(names_edits: dict) -> dict:
-    """Build every variant; name -> (library path, ptxas lines)."""
+def build(names_edits: dict, source: str = SOURCE) -> dict:
+    """Build every variant of ``csrc/<source>``; name -> (library path,
+    ptxas's figures, one line per entry: ``kernel<true>`` is the occluded
+    entry, ``kernel<false>`` the closest one)."""
     from pathtracer_tpu_torch import kernels
 
-    with open(os.path.join(kernels.CSRC, SOURCE)) as f:
+    with open(os.path.join(kernels.CSRC, source)) as f:
         src = f.read()
-    out_dir = os.path.join(kernels.BUILD_DIR, "variants")
+    out_dir = os.path.join(kernels.BUILD_DIR, "variants", os.path.splitext(source)[0])
     os.makedirs(out_dir, exist_ok=True)
     nvcc = kernels._nvcc()
     procs = {}
@@ -85,20 +87,24 @@ def build(names_edits: dict) -> dict:
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, f"nvcc failed for {name}:\n{log}"
-        lines = [ln.split("info    : ")[-1].strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        built[name] = (so, lines)
+        figures, entry = {}, "?"
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                entry = "occluded" if "ILb1E" in ln else "closest"
+            elif "registers" in ln or "spill" in ln:
+                figures.setdefault(entry, []).append(ln.split("info    : ")[-1].strip())
+        built[name] = (so, [f"{e}: {', '.join(v)}" for e, v in sorted(figures.items())])
     return built
 
 
-def load(so: str):
-    """A stand-in for ``kernels.library()`` whose shortlist entries are the
+def load(so: str, entries=("pt_shortlist_closest", "pt_shortlist_occluded")):
+    """A stand-in for ``kernels.library()`` whose ``entries`` are the
     variant's."""
     from pathtracer_tpu_torch import kernels
 
     lib = ctypes.CDLL(so)
     ns = types.SimpleNamespace(pt_error_string=kernels.library().pt_error_string)
-    for name in ("pt_shortlist_closest", "pt_shortlist_occluded"):
+    for name in entries:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = kernels._SIGNATURES[name]
         setattr(ns, name, fn)
@@ -171,7 +177,7 @@ def main(argv=None) -> int:
                 _, n, _ = render_regenerative_stats(scene, camera, settings)
                 torch.cuda.synchronize()
             rays.add(int(n))
-            sl = cs.shortlist_spans(cs.device_spans(prof))
+            sl = cs.entry_spans(cs.device_spans(prof))
             row += [sum(sl["closest"]) / 1e3, sum(sl["occluded"]) / 1e3]
             launches = f" ({len(sl['closest'])} + {len(sl['occluded'])} launches)"
         else:

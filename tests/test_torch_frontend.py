@@ -4,12 +4,14 @@ The copied numpy modules must pack identical arrays; INI/XML/OBJ files
 written by the port parse identically in both packages; RenderSettings has
 the JAX fields and defaults; scene_from_arrays carries a JAX Scene across;
 the stdlib PNG writer gives PIL's pixels; the port's copy of the native
-BVH builder and OBJ parser gives the JAX package's arrays; and the port
+BVH builder and OBJ parser gives the JAX package's arrays; the scene
+constructors default to the CUDA device and raise without one; and the port
 imports no JAX and nothing of the JAX package, even after building a scene
 from files.
 """
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -101,7 +103,7 @@ def test_written_files_parse_identically(cornell_files):
 
 
 def test_load_scene_matches_jax(cornell_files):
-    scene, camera, settings, ini = tscene_mod.load_scene(cornell_files)
+    scene, camera, settings, ini = tscene_mod.load_scene(cornell_files, device="cpu")
     jscene, jcamera, jsettings, jini = jscene_mod.load_scene(cornell_files)
     assert_same(camera, jcamera)
     assert_same(ini, jini)
@@ -128,13 +130,39 @@ def test_scene_from_arrays_round_trips_jax_scene():
               for name in tscene_mod.TENSOR_FIELDS + ("num_emissive",)}
     scene = tscene_mod.scene_from_arrays(
         arrays, jscene.num_tris, jscene.num_analytic, jscene.bvh_depth,
-        jscene.max_leaf_size)
+        jscene.max_leaf_size, device="cpu")
     for name in tscene_mod.TENSOR_FIELDS:
         t = getattr(scene, name)
         assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
         np.testing.assert_array_equal(t.numpy(), arrays[name], err_msg=name)
     assert scene.num_emissive == int(jscene.num_emissive)
     assert scene.padded_tris == jscene.padded_tris
+
+
+CONSTRUCTORS = {
+    "scene_from_arrays": tscene_mod.scene_from_arrays,
+    "scene_from_packed": tscene_mod.scene_from_packed,
+    "scene_from_graph": tscene_mod.scene_from_graph,
+    "load_scene": tscene_mod.load_scene,
+    "cornell_box_scene": tproc.cornell_box_scene,
+}
+
+
+@pytest.mark.parametrize("name", list(CONSTRUCTORS))
+def test_scene_constructors_default_to_the_card(name):
+    assert inspect.signature(CONSTRUCTORS[name]).parameters["device"].default == "cuda"
+
+
+def test_scene_without_a_card_raises(monkeypatch):
+    """With no CUDA device the default raises; nothing falls back to the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    packed = tpack.pack_scene(tproc.cornell_box_mesh())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tscene_mod.scene_from_packed(packed)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tproc.cornell_box_scene()
+    assert tscene_mod.scene_from_packed(packed, "cpu").device.type == "cpu"
 
 
 def test_png_writer_matches_pil(tmp_path):
@@ -164,7 +192,8 @@ def test_port_imports_no_jax():
         "from pathtracer_tpu_torch.models import procedural, scene\n"
         "with tempfile.TemporaryDirectory() as tmp:\n"
         "    mesh = procedural.torus_cornell_mesh(8, 6)\n"
-        "    s = scene.load_scene(procedural.write_mesh_files(tmp, mesh, 'torus'))[0]\n"
+        "    s = scene.load_scene(procedural.write_mesh_files(tmp, mesh, 'torus'),\n"
+        "                         device='cpu')[0]\n"
         "assert s.num_tris == 36 + 2 * 8 * 6, s.num_tris\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'pathtracer_tpu'))\n"

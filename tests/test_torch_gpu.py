@@ -142,8 +142,10 @@ def test_shortlist_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         shortlist.occluded_tri_shortlist_kernel(scene, o, d, torch.ones(64))
 
 
-# The band stand-in (1,152 padded triangles) and the 2,276-triangle one.
-ORACLE_MESHES = {"band": (30, 18), "torus2276": (40, 28)}
+# The band stand-in (1,152 padded triangles), the 2,276-triangle one (20
+# tiles) and the 65,572-triangle one (516 tiles: the tiled kernel walks them
+# in index order, with no cap).
+ORACLE_MESHES = {"band": (30, 18), "torus2276": (40, 28), "torus65572": (256, 128)}
 
 
 @pytest.mark.parametrize("n", [1 << 16, (1 << 16) - 1])
@@ -163,15 +165,33 @@ def test_tiled_and_cluster_kernels_equal_plain_and_brute_on_card(cuda, mesh, n):
             assert torch.equal(t, t_r)
             assert torch.equal(tri_id[hit], id_r[hit])
         assert (tri_id[~hit] == -1).all()
+    # Cutoffs below and above the nearest hit, and 0 on every seventh lane.
+    t_cut = torch.where(hit, t_b, 1.0) * torch.linspace(0.5, 1.5, n, device=cuda)
+    t_cut[::7] = 0.0
+    occ_b, any_b = tint._occluded_tri_brute(scene, o, d, t_cut)
+    for want_any in (False, True):
+        occ, hit_any = tiled.occluded_tri_tiled(scene, o, d, t_cut, want_any)
+        assert torch.equal(occ, occ_b)
+        assert torch.equal(hit_any, any_b) if want_any else hit_any is None
     assert tiled.launches["closest"] == before[0]["closest"] + 1
+    assert tiled.launches["occluded"] == before[0]["occluded"] + 2
     assert cluster.launches["closest"] == before[1]["closest"] + 1
 
 
-@pytest.mark.parametrize("kernel", [tiled.closest_tri_tiled, cluster.closest_tri_cluster])
+ENTRIES = {
+    "tiled": tiled.closest_tri_tiled,
+    "tiled-occluded": lambda scene, o, d: tiled.occluded_tri_tiled(scene, o, d, o[:, 0], True),
+    "cluster": cluster.closest_tri_cluster,
+}
+
+
+@pytest.mark.parametrize("kernel", list(ENTRIES))
 def test_tiled_and_cluster_wrappers_refuse_what_the_kernel_cannot_take(cuda, kernel):
     scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh(30, 18)), cuda)
     o, d = _rays(cuda, 64)
     with pytest.raises(TypeError):
-        kernel(scene, o.double(), d.double())
+        ENTRIES[kernel](scene, o.double(), d.double())
     with pytest.raises(ValueError):
-        kernel(scene, o.t().contiguous().t(), d)
+        ENTRIES[kernel](scene, o.t().contiguous().t(), d)
+    with pytest.raises(ValueError):
+        tiled.occluded_tri_tiled(scene, o, d, torch.ones(64))

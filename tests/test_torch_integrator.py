@@ -42,7 +42,7 @@ def scenes(glossy: bool = False, mesh=None):
     """(JAX Scene, port Scene, camera) of one packed mesh, by default the
     Cornell box."""
     packed = pack_scene(mesh or procedural.cornell_box_mesh(glossy_tall_box=glossy))
-    return _to_device(packed), scene_from_packed(packed), procedural.cornell_box_camera()
+    return _to_device(packed), scene_from_packed(packed, "cpu"), procedural.cornell_box_camera()
 
 
 def jax_scan_render(jscene, camera, st):

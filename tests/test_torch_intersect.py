@@ -60,7 +60,7 @@ def scenes():
     out = {}
     for name, make in PACKED.items():
         packed = make()
-        out[name] = (_to_device(packed), scene_from_packed(packed))
+        out[name] = (_to_device(packed), scene_from_packed(packed, "cpu"))
     return out
 
 

@@ -1,8 +1,8 @@
-"""The tiled sweep (``intersector="pallas"``) and the cluster cull
-(``intersector="cluster"``): the plain versions of their CUDA kernels vs the
-JAX package's Pallas kernels, run in interpret mode, and vs the port's brute
-sweep, on the CPU; renders, routing, the ray-sort rule and the CLI on these
-routes.
+"""The tiled kernel (``intersector="pallas"``, closest hit and any-hit) and
+the cluster cull (``intersector="cluster"``): the plain versions of their CUDA
+kernels vs the JAX package's Pallas kernels, run in interpret mode, and vs the
+port's brute sweep, on the CPU; renders, routing, the ray-sort rule and the
+CLI on these routes.
 
 Scenes: the band stand-in ``torus_cornell_mesh(30, 18)`` (1,116 triangles,
 1,152 padded, as the glossy final's) and the 2,276-triangle stand-in (2,560
@@ -11,7 +11,8 @@ a ragged 700. Tolerances: against JAX, ``t`` within rtol 2e-5 (XLA's fused
 sweeps round differently from torch's one-rounding-per-operation kernels, as
 in test_torch_intersect.py) and ids equal on hit lanes; against the port's
 brute sweep, ``t`` and ids are equal (every version calls
-``intersect.mt_components``). Renders as in test_torch_integrator.torch_parity,
+``intersect.mt_components``). The any-hit entry's flags equal ``t < t_cut``
+and ``isfinite(t)`` of JAX's kernel exactly. Renders as in test_torch_integrator.torch_parity,
 CLI PNGs as in test_torch_cli.
 """
 
@@ -66,7 +67,7 @@ def _one_torch_thread():
 
 
 def _no_launches():
-    assert intersect_tiled.launches == {"closest": 0}
+    assert intersect_tiled.launches == {"closest": 0, "occluded": 0}
     assert intersect_cluster.launches == {"closest": 0}
     assert intersect_shortlist_kernel.launches == {"closest": 0, "occluded": 0}
     assert intersect_small.launches == {"closest": 0, "occluded": 0}
@@ -78,7 +79,7 @@ def scenes():
     for name, make in MESHES.items():
         packed = pack_scene(make())
         assert packed.tri_v0.shape[0] == PADDED[name]
-        out[name] = (_to_device(packed), scene_from_packed(packed))
+        out[name] = (_to_device(packed), scene_from_packed(packed, "cpu"))
     return out
 
 
@@ -127,6 +128,31 @@ def test_plain_version_matches_pallas_interpret_and_brute(scenes, rays, route,
     _no_launches()
 
 
+@pytest.mark.parametrize("want_any", [False, True])
+@pytest.mark.parametrize("scene_name", list(MESHES))
+def test_tiled_occluded_plain_version_matches_pallas_interpret(scenes, rays, scene_name,
+                                                               want_any):
+    """``occluded_tri_tiled`` on the CPU gives JAX's ``closest_tri_pallas``
+    turned into ``t < t_cut`` and ``isfinite(t)``, the flags occlusion took
+    from the closest-hit core on this route; every seventh cutoff is 0, as a
+    parked lane's."""
+    jscene, scene = scenes[scene_name]
+    o, d, scale = rays
+    t_j, _ = closest_tri_pallas(jscene, jnp.asarray(o), jnp.asarray(d), interpret=True)
+    t_j = np.asarray(t_j)
+    t_cut = np.where(np.isfinite(t_j), t_j, 1.0).astype(np.float32) * scale
+    t_cut[::7] = 0.0
+    occ, hit_any = intersect_tiled.occluded_tri_tiled(
+        scene, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t_cut), want_any)
+    np.testing.assert_array_equal(occ.numpy(), t_j < t_cut)
+    assert 0 < occ.sum() < N_RAYS
+    if want_any:
+        np.testing.assert_array_equal(hit_any.numpy(), np.isfinite(t_j))
+    else:
+        assert hit_any is None
+    _no_launches()
+
+
 @pytest.mark.parametrize("cluster,group", [(128, 128), (512, 1024), (32, 64)])
 def test_cluster_twin_sizes_agree_with_brute(scenes, rays, cluster, group):
     """The cull is exact at the kernel's sizes (128, 128), the JAX kernel's
@@ -165,7 +191,7 @@ def test_all_padding_clusters_are_masked(rng_np):
     them. Results equal brute on the unpadded scene, in the port and in JAX
     (mirrors tests/test_intersect_cluster.py)."""
     packed = pack_scene(procedural.cornell_box_mesh())
-    jscene, scene = _to_device(packed), scene_from_packed(packed)
+    jscene, scene = _to_device(packed), scene_from_packed(packed, "cpu")
     tp = 1024
 
     def pad(a):
@@ -203,8 +229,11 @@ HIT_KW = [{}, {"direct_lighting_only": True}, {"use_vertex_normals": True}]
 def test_closest_hit_and_occlusion_match_jax_brute(scenes, rays, route, kw):
     """``closest_hit`` indexes the winner's normal, material and vertex
     normals; ``occluded_before`` answers occlusion (``t < t_cut``) and
-    ``hit_any`` (``isfinite(t)``) from the closest-hit core, as JAX's does
-    on these routes. Records equal JAX's brute ones."""
+    ``hit_any`` (``isfinite(t)``) as JAX's closest-hit core does on these
+    routes: the cluster route from its closest-hit core, the tiled one from
+    its any-hit entry, which computes ``hit_any`` only under direct lighting
+    (the only consumer) and returns ``occluded`` in its place otherwise.
+    Records equal JAX's brute ones."""
     jscene, scene = scenes["band1152"]
     o, d, scale = rays
     st, jst = RenderSettings(intersector=route, **kw), JaxSettings(intersector="brute", **kw)
@@ -225,9 +254,39 @@ def test_closest_hit_and_occlusion_match_jax_brute(scenes, rays, route, kw):
     jocc, jany = jint.occluded_before(jscene, jo, jd, jnp.asarray(t_max.numpy()), jst)
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
     assert 0 < occ.sum() < N_RAYS
-    np.testing.assert_array_equal(hit_any.numpy(), h)
+    if st.direct_lighting_only or route == "cluster":
+        np.testing.assert_array_equal(hit_any.numpy(), h)
+    else:
+        np.testing.assert_array_equal(hit_any.numpy(), occ.numpy())
     if st.direct_lighting_only:
         np.testing.assert_array_equal(hit_any.numpy(), np.asarray(jany))
+    _no_launches()
+
+
+@pytest.mark.parametrize("dlo", [False, True])
+def test_occluded_before_takes_the_tiled_any_hit_entry(scenes, rays, monkeypatch, dlo):
+    """On the ``pallas`` route ``occluded_before`` calls
+    ``occluded_tri_tiled`` once, with ``want_any`` set by direct lighting,
+    and returns its flags; the cluster route does not call it."""
+    _, scene = scenes["band1152"]
+    o, d, scale = (torch.as_tensor(x) for x in rays)
+    assert tint._OCCLUDED_ANY["pallas"] is intersect_tiled.occluded_tri_tiled
+    calls = []
+
+    def stand_in(scene_, o_, d_, t_cut, want_any=False):
+        calls.append(want_any)
+        occ = torch.arange(o_.shape[0]) % 3 == 0
+        return occ, (torch.arange(o_.shape[0]) % 2 == 0 if want_any else None)
+
+    monkeypatch.setitem(tint._OCCLUDED_ANY, "pallas", stand_in)
+    st = RenderSettings(intersector="pallas", direct_lighting_only=dlo)
+    occ, hit_any = tint.occluded_before(scene, o, d, scale, st)
+    assert calls == [dlo]
+    assert torch.equal(occ, torch.arange(N_RAYS) % 3 == 0)
+    assert torch.equal(hit_any, torch.arange(N_RAYS) % (2 if dlo else 3) == 0)
+    tint.occluded_before(scene, o, d, scale, RenderSettings(intersector="cluster",
+                                                            direct_lighting_only=dlo))
+    assert calls == [dlo]
     _no_launches()
 
 
@@ -290,7 +349,16 @@ def test_cli_route_png_matches_brute(band_ini, brute_png, tmp_path, capsys, rout
     _no_launches()
 
 
-@pytest.mark.parametrize("route", list(ROUTES))
+# Every kernel entry of these routes, called on rays (o, d).
+ENTRIES = {
+    "pallas": intersect_tiled.closest_tri_tiled,
+    "pallas-occluded": lambda scene, o, d: intersect_tiled.occluded_tri_tiled(
+        scene, o, d, o[:, 0], True),
+    "cluster": intersect_cluster.closest_tri_cluster,
+}
+
+
+@pytest.mark.parametrize("route", list(ENTRIES))
 def test_wrapper_never_takes_plain_path_off_cpu(scenes, route):
     """Tensors off the CPU go to the kernel path, which refuses what it
     cannot launch (a tensor on the meta device) instead of falling back to
@@ -298,5 +366,5 @@ def test_wrapper_never_takes_plain_path_off_cpu(scenes, route):
     _, scene = scenes["band1152"]
     o = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        ROUTES[route][0](scene, o, o)
+        ENTRIES[route](scene, o, o)
     _no_launches()

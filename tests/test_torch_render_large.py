@@ -52,7 +52,7 @@ def _no_launches():
 def test_stand_in_render_matches_jax(scheduler, kw):
     """JAX's ``auto`` is its XLA shortlist on this CPU (with the ray sort in
     the pool), the port's the shortlist's torch twin (with the sort)."""
-    scene = scene_from_packed(pack_scene(_stand_in()))
+    scene = scene_from_packed(pack_scene(_stand_in()), "cpu")
     st = RenderSettings(scheduler=scheduler, **SIZE, **kw)
     assert sort_rays_on(st, scene)
     torch_parity(scheduler, mesh=_stand_in(), **kw)
@@ -94,7 +94,7 @@ def test_ray_sort_changes_only_summation_order(case):
         mesh, camera = _closed_cornell()
         kw = dict(width=8, height=8, samples_per_pixel=2, max_depth=300, rr_prob=1.0)
         sorts = ("on", "off")
-    scene = scene_from_packed(pack_scene(mesh))
+    scene = scene_from_packed(pack_scene(mesh), "cpu")
     out = {}
     for ray_sort in sorts:
         st = RenderSettings(ray_sort=ray_sort, **kw)
@@ -140,7 +140,7 @@ def test_written_stand_in_loads_as_generated(tmp_path):
 
     ini = procedural.write_mesh_files(str(tmp_path), _stand_in(), "torus")
     scene, camera, st, _ = load_scene(ini, device="cpu")
-    ref = scene_from_packed(pack_scene(_stand_in()))
+    ref = scene_from_packed(pack_scene(_stand_in()), "cpu")
     assert scene.num_tris == 2276 and scene.padded_tris == 2560
     assert torch.equal(scene.tri_v0, ref.tri_v0) and torch.equal(scene.tri_e1, ref.tri_e1)
     assert camera == procedural.cornell_box_camera()

@@ -24,6 +24,6 @@ def test_scan_direct_lighting_only():
 
 @pytest.mark.parametrize("kw", [{"rng": "threefry"}, {"intersector": "bvh"}])
 def test_unported_settings_raise(kw):
-    scene, camera = cornell_box_scene()
+    scene, camera = cornell_box_scene(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(scene, camera, RenderSettings(**dict(SIZE, **kw)))

@@ -31,7 +31,7 @@ def test_regen_non_square():
 
 def test_preview_chunks_equal_straight_render():
     """Preview chunks (sample_offset) trace the same paths as one pool."""
-    scene, camera = cornell_box_scene()
+    scene, camera = cornell_box_scene(device="cpu")
     st = RenderSettings(**dict(SIZE, samples_per_pixel=3))
     seen = []
     img, n = render_stats(scene, camera, st)
@@ -44,7 +44,7 @@ def test_preview_chunks_equal_straight_render():
 def test_pool_id_slices_cover_the_whole_render():
     """Two K-aligned slices of the id space (id_offset / n_ids / id_limit)
     sum to the unsliced pool's image and ray count."""
-    scene, camera = cornell_box_scene()
+    scene, camera = cornell_box_scene(device="cpu")
     st = RenderSettings(**dict(SIZE, samples_per_pixel=3, spawn_chunk=2))
     frame = ray_frame_tensors(camera, st.width, st.height, "cpu")
     kw = dict(n_pixels=256, batch=64, rays_per_pixel=3)

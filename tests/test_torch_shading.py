@@ -67,7 +67,7 @@ def test_camera_rays(size):
 @pytest.mark.parametrize("detailed", [True, False])
 def test_light_sampling(count_pdf, detailed):
     jscene, _ = jax_cornell()
-    scene, _ = cornell_box_scene()
+    scene, _ = cornell_box_scene(device="cpu")
     g = np.random.default_rng(1)
     x = g.uniform([-0.9, 0.1, -0.9], [0.9, 1.9, 0.9], (B, 3)).astype(np.float32)
     u = g.random((3, B), dtype=np.float32)

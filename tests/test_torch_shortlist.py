@@ -59,7 +59,7 @@ def _no_launches():
 def scenes():
     packed = pack_scene(procedural.torus_cornell_mesh(40, 28))
     assert packed.tri_v0.shape[0] == 2560
-    return _to_device(packed), scene_from_packed(packed)
+    return _to_device(packed), scene_from_packed(packed, "cpu")
 
 
 @pytest.fixture(scope="module")
