@@ -12,19 +12,34 @@ non-zero):
                 process per source, all started together.
 3. kernel    -- the small-scene kernel against its plain torch version on the
                 card, on 262,144 rays (Cornell camera rays + random rays inside
-                the box) and three scenes (36, 37 and 250 triangles): t
-                bit-equal, ids, normals, materials and occlusion flags equal;
-                both timed.
+                the box, about a quarter of the lanes parked as the integrator
+                parks dead lanes) and on 262,143 of them, on three scenes (36,
+                37 and 250 triangles): t bit-equal, ids, normals, materials,
+                occlusion and hit_any equal, with cutoffs around the nearest
+                hit and with every seventh cutoff 0; the lanes the kernel
+                swept equal its skip rule's (lanes_to_sweep); both entries
+                timed beside their bounds (graph_ms: a wrapper call takes
+                longer on the host than the kernel on the card, so 100 calls
+                are replayed as one CUDA graph; the Cornell box's closest
+                entry also by events and host clock around back-to-back
+                calls); ptxas's registers and spills, the resident warps per
+                SM and the instructions of each entry's row loop (cuobjdump).
 4. cli       -- ``pathtracer_tpu_torch.cli`` renders Cornell-box files written
                 to a temporary directory at 128^2, spp 8 through the kernel.
 5. cpu       -- the card's render equals the CPU port's at 32^2, spp 4: equal
                 rays traced, 99% of pixels within 1e-4, tonemapped MSE <= 1e-4.
 6. headline  -- Cornell box at 512^2, spp 16, depth 17, regen, 2^18 lanes,
                 with the kernel ("auto") and the plain sweep ("brute"): equal
-                rays traced, image MSE <= 1e-6; wall time and rays/s of each.
+                rays traced, image MSE <= 1e-6; wall time and rays/s of each;
+                the share of launched lanes the kernel skipped in the warm-up
+                render. One more "auto" render under torch.profiler: small
+                kernel ms per render (closest and occluded), device busy and
+                its share of the unprofiled walls, device intervals per pool
+                iteration.
 7. shortlist -- the shortlist kernel against its plain torch twin and the brute
                 sweep on the torus stand-ins (12,580 and 2,276 triangles), on
-                the 262,144 rays of phase 3 and on a batch of 262,143: t 0 ULP
+                phase 3's 262,144 rays with none parked and on a batch of
+                262,143: t 0 ULP
                 from both, ids equal on hit lanes, occlusion equal; all timed.
                 Then against brute on a 65,572-triangle stand-in (516
                 clusters, above the earlier 415-cluster cap) on 65,535 of those
@@ -42,12 +57,10 @@ non-zero):
                 ms per render, device busy (the union of the device's kernel
                 and copy intervals) and its share of the unprofiled walls.
 10. oracles  -- the tiled kernel ("pallas"), both entries, against its plain
-                versions (the brute sweeps), the tiled kernel's earlier
-                design (the brute tiled sweep of
-                csrc/baseline/intersect_tiled_sweep.cu, built alone) against
-                brute, and the cluster kernel ("cluster") against its plain
-                twin and brute, on the 262,144 rays of phase 3 and on
-                262,143, on the Cornell box, the band stand-in (1,116
+                versions (the brute sweeps), and the cluster kernel
+                ("cluster") against its plain twin and brute, on the 262,144
+                rays of phase 7 and on 262,143, on the Cornell box, the band
+                stand-in (1,116
                 triangles, 1,152 padded) and both torus stand-ins: t 0 ULP,
                 ids equal on hit lanes; the any-hit entry's occlusion and
                 hit_any equal brute's, with cutoffs around the nearest hit
@@ -75,8 +88,7 @@ and quartile walls and how many rounds it beat brute in: the measurement
 behind ``auto``'s route in the band and its ray-sort rule.
 
 The build phase also builds the port's native host library (the BVH builder
-and OBJ parser, ``pathtracer_tpu_torch/native``) and prints its path, and,
-beside the kernel library, the tiled kernel's earlier design.
+and OBJ parser, ``pathtracer_tpu_torch/native``) and prints its path.
 
 The line before the last is the kernels' JSON record: per kernel entry point
 its launches in one render of its cell, its error against its plain version,
@@ -101,6 +113,7 @@ import torch
 N_RAYS = 1 << 18
 TIMED_LAUNCHES = 20
 TIMED_PLAIN = 3  # the shortlist phase's plain twin and brute sweep are slow
+PARKED_SHARE = 0.25  # phase 3's parked lanes, about the Cornell render's share
 # Image sides of phase 8's CLI render and phase 9's renders.
 CLI_LARGE_SIZE = 128
 LARGE_SIZE = 512
@@ -111,9 +124,6 @@ FAMILY = {"small_pallas": "small", "shortlist_pallas": "shortlist", "pallas": "t
 # --band-pairs candidates beyond BAND_ROUTES, by their settings.
 SORTED_PALLAS = "pallas, rays sorted"
 ROUTE_SETTINGS = {SORTED_PALLAS: {"intersector": "pallas", "ray_sort": "on"}}
-# The tiled kernel's earlier design, built alone under another entry name.
-BASELINE_SOURCE = "baseline/intersect_tiled_sweep.cu"
-BASELINE_ENTRY = "pt_tiled_sweep_closest"
 # Phase 7's scene above the earlier 415-cluster cap, and its batch.
 LARGEST_MESH = (256, 128)  # torus_cornell_mesh: 65,572 triangles, 516 clusters
 LARGEST_RAYS = (1 << 16) - 1
@@ -163,6 +173,33 @@ def event_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int = 100, rounds: int = 5) -> float:
+    """Device milliseconds per call of ``fn``, for a kernel shorter than its
+    wrapper's host time (where back-to-back calls time the host): ``n``
+    calls captured in one CUDA graph, each replay timed by events; the
+    median over ``rounds`` replays."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    means = []
+    for _ in range(rounds):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / n)
+    return float(np.median(means))
+
+
 def smoke_scenes(dev):
     """The three scenes of phase 3: (name, Scene)."""
     from pathtracer_tpu_torch.models.pack import pack_scene
@@ -201,6 +238,16 @@ def smoke_rays(dev):
     return o.contiguous(), d.contiguous(), cut_scale
 
 
+def park_lanes(o, d):
+    """``o``, ``d`` with about PARKED_SHARE of the lanes, scattered, parked as
+    the integrator parks dead lanes (origin 1e6, direction +x: a sure miss)."""
+    lanes = torch.as_tensor(np.random.default_rng(13).random(o.shape[0]) < PARKED_SHARE,
+                            device=o.device)[:, None]
+    plus_x = torch.tensor([1.0, 0.0, 0.0], device=d.device)
+    return (torch.where(lanes, 1.0e6, o).contiguous(),
+            torch.where(lanes, plus_x, d).contiguous())
+
+
 def ulp_distance(a, b) -> int:
     """Largest ULP distance between two f32 tensors over lanes where both are
     finite (a non-finite mismatch counts as infinitely far)."""
@@ -212,7 +259,7 @@ def ulp_distance(a, b) -> int:
     return int((ia - ib).abs().max()) if ia.numel() else 0
 
 
-def kernel_bound(scene, o, d, t_stop, occluded=None):
+def kernel_bound(scene, o, d, t_stop, occluded=None, out_bytes=None):
     """(bound ms, "operations" or "bytes") of a closest-hit call (``occluded``
     None, ``t_stop`` the brute t) or an any-hit call (``t_stop`` the cutoff)
     on these rays, by ``roofline``'s one definition."""
@@ -220,7 +267,51 @@ def kernel_bound(scene, o, d, t_stop, occluded=None):
 
     tests = roofline.tests_needed(scene, o, d, t_stop, occluded)
     rows = -(-scene.padded_tris // roofline.CLUSTER) * roofline.CLUSTER
-    return roofline.bound_ms(tests, o.shape[0], rows, occluded is not None)
+    return roofline.bound_ms(tests, o.shape[0], rows, occluded is not None, out_bytes)
+
+
+def host_ms(fn, n: int = 100) -> float:
+    """Host milliseconds per call of ``fn``, calls back to back (the enqueue:
+    no synchronize among them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def sass_loops(kernel: str) -> dict:
+    """By entry of ``kernel`` in the built library ("closest", or "occluded"
+    for ``<true>``): (instruction slots, their opcodes counted) of its
+    innermost loop, the shortest span a backward branch closes, from
+    ``cuobjdump -sass``; {} where the toolkit has no cuobjdump."""
+    from pathtracer_tpu_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", kernels.library_path()], capture_output=True,
+                          text=True, check=True).stdout
+    loops = {}
+    for func in sass.split("Function : ")[1:]:
+        name = func.split("\n", 1)[0]
+        if kernel not in name:
+            continue
+        ins = [(int(a, 16), text) for a, text in re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", func)]
+        spans = [(int(m.group(1), 16), a) for a, text in ins
+                 if (m := re.search(r"\bBRA\b.*0x([0-9a-f]+)", text)) and int(m.group(1), 16) < a]
+        lo, hi = min(spans, key=lambda s: s[1] - s[0])
+        ops = {}
+        for a, text in ins:
+            if lo <= a <= hi:
+                op = next(w for w in text.split() if not w.startswith("@")).split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+        entry = "occluded" if "ILb1E" in name else "closest"
+        loops[entry] = (sum(ops.values()), dict(sorted(ops.items(), key=lambda kv: -kv[1])))
+    return loops
 
 
 def ptxas_report() -> dict:
@@ -236,49 +327,114 @@ def ptxas_report() -> dict:
     return report
 
 
-def phase_kernels(dev):
+def swept_lanes(fn, scene, o, d, t_cut=None, want_any=False):
+    """``fn()`` with the small kernel counting the lanes it sweeps -> (its
+    result, the share of lanes skipped); the lanes swept must be those of
+    the kernel's rule, ``lanes_to_sweep``."""
     from pathtracer_tpu_torch.ops import intersect_small as small
 
-    o, d, cut_scale = smoke_rays(dev)
-    records = {}
-    for name, scene in smoke_scenes(dev):
-        t, tri, n, m = small.closest_tri_small(scene, o, d)
-        tp, trip, np_, mp = small.closest_tri_small_plain(scene, o, d)
-        torch.cuda.synchronize()
-        ulp = ulp_distance(t, tp)
-        assert ulp == 0, f"{name}: t differs from the plain version by {ulp} ULP"
-        assert torch.equal(tri, trip), f"{name}: tri_id differs"
-        assert torch.equal(n, np_), f"{name}: n_geo differs"
-        assert torch.equal(m, mp), f"{name}: mat_id differs"
-        t_cut = torch.where(torch.isfinite(tp), tp, 1.0) * cut_scale
+    small.lane_counts = {}
+    try:
+        out = fn()
+        ((launched, swept),) = small.lane_counts.values()
+    finally:
+        small.lane_counts = None
+    swept, rule = int(swept), int(small.lanes_to_sweep(scene, o, d, t_cut, want_any).sum())
+    assert swept == rule, f"the kernel swept {swept} lanes, its rule {rule}"
+    return out, 1.0 - swept / launched
+
+
+def small_kernel_checks(name, scene, o, d, cut_scale, entries=None):
+    """Both entries of the small kernel against their plain versions on rays
+    ``o``, ``d``: closest, then any-hit with and without hit_any on cutoffs
+    around the nearest hit and on the same with every seventh 0 -> (plain
+    t, the zeroed cutoffs and the plain occlusion on them, largest error by
+    entry, share of lanes skipped by entry). ``entries`` (closest, occluded)
+    stand in for the wrappers, a design variant's: then no lane is counted
+    and the shares are None."""
+    from pathtracer_tpu_torch.ops import intersect_small as small
+
+    closest, occluded = entries or (small.closest_tri_small, small.occluded_tri_small)
+
+    def run(fn, t_cut=None, want_any=False):
+        return (fn(), None) if entries else swept_lanes(fn, scene, o, d, t_cut, want_any)
+
+    (t, tri, n, m), skip_c = run(lambda: closest(scene, o, d))
+    tp, trip, np_, mp = small.closest_tri_small_plain(scene, o, d)
+    torch.cuda.synchronize()
+    ulp = ulp_distance(t, tp)
+    assert ulp == 0, f"{name}: t differs from the plain version by {ulp} ULP"
+    assert torch.equal(tri, trip), f"{name}: tri_id differs"
+    assert torch.equal(n, np_), f"{name}: n_geo differs"
+    assert torch.equal(m, mp), f"{name}: mat_id differs"
+    fin = torch.isfinite(tp)
+    err = {"closest": (t[fin] - tp[fin]).abs().max().item() if fin.any() else 0.0,
+           "occluded": 0.0}
+    t_cut = torch.where(fin, tp, 1.0) * cut_scale
+    zeroed = t_cut.clone()
+    zeroed[::7] = 0.0
+    skip_o = []
+    for cut in (t_cut, zeroed):
         for want_any in (False, True):
-            occ, hit_any = small.occluded_tri_small(scene, o, d, t_cut, want_any)
-            occ_p, any_p = small.occluded_tri_small_plain(scene, o, d, t_cut, want_any)
+            (occ, hit_any), skip = run(lambda: occluded(scene, o, d, cut, want_any),
+                                       cut, want_any)
+            occ_p, any_p = small.occluded_tri_small_plain(scene, o, d, cut, want_any)
             assert torch.equal(occ, occ_p), f"{name}: occluded differs"
             if want_any:
                 assert torch.equal(hit_any, any_p), f"{name}: hit_any differs"
-        hits, n_occ = int(torch.isfinite(t).sum()), int(occ.sum())
-        fin = torch.isfinite(tp)
-        err = {
-            "closest": (t[fin] - tp[fin]).abs().max().item() if hits else 0.0,
-            "occluded": (occ.float() - occ_p.float()).abs().max().item(),
-        }
+            err["occluded"] = max(err["occluded"],
+                                  (occ.float() - occ_p.float()).abs().max().item())
+            skip_o.append(skip)
+    return tp, zeroed, occ_p, err, {"closest": skip_c, "occluded": skip_o[2]}
 
+
+def phase_kernels(dev):
+    from pathtracer_tpu_torch import kernels
+    from pathtracer_tpu_torch.ops import intersect_small as small
+
+    o, d, cut_scale = smoke_rays(dev)
+    o, d = park_lanes(o, d)
+    records, scenes = {}, dict(smoke_scenes(dev))
+    for name, scene in scenes.items():
+        for n in (N_RAYS - 1, N_RAYS):  # the full batch last: its inputs are timed
+            tp, cut, occ_p, err, skip = small_kernel_checks(
+                f"{name} n={n}", scene, o[:n], d[:n], cut_scale[:n])
+            hits, n_occ = int(torch.isfinite(tp).sum()), int(occ_p.sum())
+            log("kernel", f"{name} T={scene.num_tris} rays={n} hits={hits} occluded={n_occ} "
+                f"(every seventh cutoff 0): t 0 ULP (bit-equal), ids/normals/materials/occ/"
+                f"hit_any equal, cutoffs around the hit and every seventh 0; lanes skipped "
+                f"(as lanes_to_sweep): closest {skip['closest']:.4f}, occluded "
+                f"{skip['occluded']:.4f}")
         ms = {
-            "closest": event_ms(lambda: small.closest_tri_small(scene, o, d)),
+            "closest": graph_ms(lambda: small.closest_tri_small(scene, o, d)),
             "closest_plain": event_ms(lambda: small.closest_tri_small_plain(scene, o, d)),
-            "occluded": event_ms(lambda: small.occluded_tri_small(scene, o, d, t_cut)),
+            "occluded": graph_ms(lambda: small.occluded_tri_small(scene, o, d, cut)),
             "occluded_plain": event_ms(
-                lambda: small.occluded_tri_small_plain(scene, o, d, t_cut)),
+                lambda: small.occluded_tri_small_plain(scene, o, d, cut)),
         }
-        bound = {"closest": kernel_bound(scene, o, d, tp),
-                 "occluded": kernel_bound(scene, o, d, t_cut, occ_p)}
+        bound = {"closest": kernel_bound(scene, o, d, tp, out_bytes=24),
+                 "occluded": kernel_bound(scene, o, d, cut, occ_p)}
         records[name] = (ms, err, bound)
-        log("kernel", f"{name} T={scene.num_tris} rays={N_RAYS} hits={hits} "
-            f"occluded={n_occ}: t 0 ULP (bit-equal), ids/normals/materials/occ/"
-            f"hit_any equal; closest {ms['closest']:.4f} ms vs plain "
-            f"{ms['closest_plain']:.4f} ms; occluded {ms['occluded']:.4f} ms vs "
-            f"plain {ms['occluded_plain']:.4f} ms; {bound_text(ms, bound)}")
+        log("kernel", f"{name} at {N_RAYS} rays: closest {ms['closest']:.4f} ms vs plain "
+            f"{ms['closest_plain']:.4f} ms; occluded {ms['occluded']:.4f} ms vs plain "
+            f"{ms['occluded_plain']:.4f} ms; {bound_text(ms, bound)}")
+    def closest():
+        return small.closest_tri_small(scenes["cornell36"], o, d)
+
+    log("kernel", "cornell36 closest, wrapper calls back to back: events "
+        f"{event_ms(closest, 100):.4f} ms a call, host {host_ms(closest):.4f} ms a call, "
+        f"against the kernel's {graph_ms(closest):.4f} ms (a CUDA graph of 100 calls)")
+    for entry, (slots, ops) in sass_loops("small_kernel").items():
+        log("kernel", f"SASS small_kernel {entry}: the row loop is {slots} instruction "
+            f"slots: {ops}")
+    for entry, lines in ptxas_report().items():
+        if "small_kernel" in entry:
+            assert not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines), lines
+            log("kernel", f"ptxas {entry}: {'; '.join(lines)}")
+    for any_hit, entry in ((0, "closest"), (1, "occluded")):
+        warps = kernels.library().pt_small_warps_per_sm(any_hit)
+        assert warps > 0, f"occupancy query failed: {warps}"
+        log("kernel", f"small {entry}: {warps} resident warps per SM")
     return records
 
 
@@ -348,7 +504,15 @@ def phase_headline(dev):
             lambda: render_regenerative_stats(scene, camera, st))
         return img, int(n), iters, wall
 
-    run("auto")  # warm-up
+    small.lane_counts = {}  # the warm-up counts the lanes the kernel sweeps
+    try:
+        run("auto")
+        counts = small.lane_counts
+    finally:
+        small.lane_counts = None
+    skipped = {k: 1.0 - int(swept) / launched for k, (launched, swept) in counts.items()}
+    log("headline", "auto warm-up: share of launched lanes the kernel skipped (root box "
+        f"and cutoff): closest {skipped['closest']:.4f}, occluded {skipped['occluded']:.4f}")
     results, launches = {}, None
     for intersector in ("brute", "auto", "auto", "brute"):
         reset_launches()
@@ -371,6 +535,14 @@ def phase_headline(dev):
     walls = {k: [r[3] for r in v] for k, v in results.items()}
     log("headline", f"equal rays traced ({n_k}); image MSE kernel vs brute {err:.3e}; "
         f"wall auto {walls['auto']} s, brute {walls['brute']} s")
+
+    def counted_run():
+        reset_launches()
+        return run("auto"), dict(small.launches)
+
+    (profiled, _), profile = profiled_render(counted_run, "small_kernel", lambda out: out[1])
+    assert profiled[1:3] == results["auto"][0][1:3], "the profiled render traced other rays"
+    log("headline", "profiled render " + profile_text(profile, profiled[2], walls["auto"]))
     return launches
 
 
@@ -620,7 +792,7 @@ def device_spans(prof) -> list:
 
 def entry_spans(spans, kernel: str = "shortlist_kernel") -> dict:
     """The durations (us) in ``spans`` of a kernel templated on its any-hit
-    flag (the shortlist or the tiled kernel), by entry."""
+    flag (the small, shortlist or tiled kernel), by entry."""
     # The entry's template flag, demangled (<true>) or not (ILb1E).
     return {k: [b - a for a, b, nm in spans if kernel in nm
                 and (f"<{flag}>" in nm or f"ILb{int(flag == 'true')}E" in nm)]
@@ -678,50 +850,6 @@ def band_scene(dev):
     return scene
 
 
-def start_baseline_build():
-    """Start nvcc on the tiled kernel's earlier design, alone, its entry
-    renamed to BASELINE_ENTRY -> (library path, process)."""
-    from pathtracer_tpu_torch import kernels
-
-    out_dir = os.path.join(kernels.BUILD_DIR, "baseline")
-    os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "libpt_tiled_sweep.so")
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
-           f"-Dpt_tiled_closest={BASELINE_ENTRY}", "-shared", "-o", so,
-           os.path.join(kernels.CSRC, BASELINE_SOURCE)]
-    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-
-
-def load_baseline(build):
-    """Wait for ``start_baseline_build``'s nvcc -> its loaded entry."""
-    import ctypes
-
-    so, proc = build
-    out, _ = proc.communicate()
-    assert proc.returncode == 0, f"nvcc failed on {BASELINE_SOURCE}:\n{out}"
-    fn = getattr(ctypes.CDLL(so), BASELINE_ENTRY)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes, fn.restype = [p, p, p, i, i, p, p, p], i
-    return fn
-
-
-def baseline_closest(entry, scene, o, d):
-    """The earlier design's closest hit -> (t, tri_id); it counts no launch
-    (it is not on any path of the port)."""
-    from pathtracer_tpu_torch import kernels
-    from pathtracer_tpu_torch.ops.intersect_shortlist_kernel import kernel_table
-
-    table, _ = kernel_table(scene)
-    b = o.shape[0]
-    t = torch.empty(b, dtype=torch.float32, device=o.device)
-    tri_id = torch.empty(b, dtype=torch.int64, device=o.device)
-    rc = entry(o.data_ptr(), d.data_ptr(), table.data_ptr(), table.shape[0], b, t.data_ptr(),
-               tri_id.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "the tiled kernel's earlier design")
-    return t, tri_id
-
-
 def check_tiled_occluded(label, scene, o, d, t_b, cut_scale):
     """The any-hit entry, with and without hit_any, equals the brute sweep on
     cutoffs ``t_b * cut_scale`` and on the same with every seventh cutoff 0
@@ -745,7 +873,7 @@ def check_tiled_occluded(label, scene, o, d, t_b, cut_scale):
     return t_cut, occluded[0]
 
 
-def phase_oracles(dev, baseline):
+def phase_oracles(dev):
     from pathtracer_tpu_torch.ops import intersect as tint
     from pathtracer_tpu_torch.ops import intersect_cluster as ic
     from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
@@ -754,9 +882,7 @@ def phase_oracles(dev, baseline):
     o, d, cut_scale = smoke_rays(dev)
     # kernel, its plain version (None: the brute sweep itself)
     kernels = {"tiled": (it.closest_tri_tiled, None),
-               "cluster": (ic.closest_tri_cluster, ic.closest_tri_cluster_plain),
-               "earlier tiled": (lambda sc, oo, dd: baseline_closest(baseline, sc, oo, dd),
-                                 None)}
+               "cluster": (ic.closest_tri_cluster, ic.closest_tri_cluster_plain)}
     scenes = [smoke_scenes(dev)[0], ("band1152", band_scene(dev)), *stand_in_scenes(dev)]
     records = {}
     for name, scene in scenes:
@@ -780,7 +906,7 @@ def phase_oracles(dev, baseline):
                                                 cut_scale[:n])
             log("oracles", f"{name} T={scene.num_tris} rays={n} "
                 f"hits={int(torch.isfinite(brute[0]).sum())} occluded={int(occ_b.sum())}: "
-                "tiled, its earlier design and cluster t 0 ULP from their plain versions "
+                "tiled and cluster t 0 ULP from their plain versions "
                 "and brute, ids equal on hit lanes; tiled occlusion and hit_any equal "
                 "brute's (cutoffs around the hit, and every seventh 0)")
             if n == N_RAYS:
@@ -797,7 +923,6 @@ def phase_oracles(dev, baseline):
             "tiled_occluded": event_ms(lambda: it.occluded_tri_tiled(scene, o, d, cut)),
             "tiled_occluded_plain": event_ms(
                 lambda: tint._occluded_tri_brute(scene, o, d, cut), TIMED_PLAIN),
-            "earlier": event_ms(lambda: baseline_closest(baseline, scene, o, d)),
             "cluster": event_ms(lambda: ic.closest_tri_cluster(scene, o, d)),
             "cluster_plain": event_ms(lambda: ic.closest_tri_cluster_plain(scene, o, d),
                                       TIMED_PLAIN),
@@ -808,13 +933,12 @@ def phase_oracles(dev, baseline):
         records[name] = (tiled_ms, {"closest": ms["cluster"], "closest_plain": ms["cluster_plain"]},
                          errors, bound)
         (b, by), (bo, byo) = bound["closest"], bound["occluded"]
-        log("oracles", f"{name} at {N_RAYS} rays: tiled closest {ms['tiled']:.4f} ms vs its "
-            f"earlier design {ms['earlier']:.4f} ms vs plain (brute) {ms['tiled_plain']:.4f} "
-            f"ms; tiled occluded {ms['tiled_occluded']:.4f} ms vs plain (brute) "
+        log("oracles", f"{name} at {N_RAYS} rays: tiled closest {ms['tiled']:.4f} ms vs "
+            f"plain (brute) {ms['tiled_plain']:.4f} ms; tiled occluded "
+            f"{ms['tiled_occluded']:.4f} ms vs plain (brute) "
             f"{ms['tiled_occluded_plain']:.4f} ms; cluster {ms['cluster']:.4f} ms vs twin "
             f"{ms['cluster_plain']:.4f} ms; closest bound {b:.6f} ms ({by}), share tiled "
-            f"{b / ms['tiled']:.4f}, earlier {b / ms['earlier']:.4f}, cluster "
-            f"{b / ms['cluster']:.4f}; occluded bound {bo:.6f} ms ({byo}), share tiled "
+            f"{b / ms['tiled']:.4f}, cluster {b / ms['cluster']:.4f}; occluded bound {bo:.6f} ms ({byo}), share tiled "
             f"{bo / ms['tiled_occluded']:.4f}")
         if name == "band1152":
             sl = {"closest": event_ms(lambda: sk.closest_tri_shortlist_kernel(scene, o, d)),
@@ -1002,15 +1126,11 @@ def main(argv=None) -> int:
 
     from pathtracer_tpu_torch import kernels
 
-    baseline_build = start_baseline_build()
     kernels.library()
     ptxas = [f"{entry}: {ln}" for entry, lines in ptxas_report().items()
              for ln in lines if "registers" in ln]
     log("build", f"nvcc built {os.path.basename(kernels.library_path())} in "
         f"{kernels.build_seconds:.2f} s; ptxas: {'; '.join(ptxas)}")
-    baseline = load_baseline(baseline_build)
-    log("build", f"nvcc built the tiled kernel's earlier design ({BASELINE_SOURCE}) as "
-        f"{BASELINE_ENTRY}")
     from pathtracer_tpu_torch import native
 
     assert native.get_lib() is not None, "the port's native host library did not load"
@@ -1023,7 +1143,7 @@ def main(argv=None) -> int:
     sl_ms = phase_shortlist(dev)
     phase_cli_large(dev)
     sl_launches = phase_large(dev)
-    or_ms = phase_oracles(dev, baseline)
+    or_ms = phase_oracles(dev)
     band_launches = phase_band(dev, args.band_pairs)
     phase_cli_oracles(dev)
 

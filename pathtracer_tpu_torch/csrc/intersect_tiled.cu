@@ -89,27 +89,6 @@ constexpr int kDenseLanes = 28;
 constexpr float kSlack = 1.0f / 4096;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Slab entry of a ray to a tile's box, max(t_near, 0), or +inf where the box
-// is missed, behind the ray, or empty (lo.x > hi.x); an interval empty by
-// less than kSlack of the entry counts as entered.
-__device__ __forceinline__ float tile_enter(const float* box, const Ray& r,
-                                            const float inv[3]) {
-  float t_near, t_far;
-  slab(box, r, inv, t_near, t_far);
-  const float e = nan_max(t_near, 0.0f);
-  const bool ok = t_far >= e * (1.0f - kSlack) && t_far > 0.0f && box[0] <= box[3];
-  return ok ? e : INFINITY;
-}
-
-// A lane at bound `best` needs a tile entered at `e`: closest lanes also take
-// entries equal to best (a later tile may hold an equal t at a smaller id);
-// any-hit lanes only a hit strictly before the bound.
-template <bool kAnyHit>
-__device__ __forceinline__ bool improvable(float e, float best) {
-  const float s = e * (1.0f - kSlack);
-  return kAnyHit ? s < best : (s <= best && e < INFINITY);
-}
-
 // Row j of a tile's rows: the 12 floats v0.xyz e1.xyz e2.xyz valid id n.x in
 // three 16-byte loads.
 __device__ __forceinline__ void load_row(const float4* __restrict__ rows, int j,
@@ -224,8 +203,8 @@ __device__ __forceinline__ void visit(const float4* __restrict__ table4,
                                       const float* __restrict__ bounds, int k,
                                       const Ray& ray, const float inv[3], bool live,
                                       int lane, Lane& s) {
-  const float e = tile_enter(bounds + 6 * static_cast<int64_t>(k), ray, inv);
-  const bool need = live && improvable<kAnyHit>(e, s.best);
+  const float e = box_enter_widened(bounds + 6 * static_cast<int64_t>(k), ray, inv, kSlack);
+  const bool need = live && improvable<kAnyHit>(e, s.best, kSlack);
   const unsigned needing = __ballot_sync(kFull, need);
   if (!needing) return;
   const float4* rows = table4 + static_cast<int64_t>(k) * kTile * kRow4;
@@ -257,9 +236,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
   }
   const float inv[3] = {inv_dir(ray.dx), inv_dir(ray.dy), inv_dir(ray.dz)};
-  const float root = tile_enter(bounds + 6 * static_cast<int64_t>(c), ray, inv);
+  const float root = box_enter_widened(bounds + 6 * static_cast<int64_t>(c), ray, inv, kSlack);
 
-  if (__any_sync(kFull, live && improvable<kAnyHit>(root, s.best))) {
+  if (__any_sync(kFull, live && improvable<kAnyHit>(root, s.best, kSlack))) {
     for (int k = 0; k < c; ++k) visit<kAnyHit>(table4, bounds, k, ray, inv, live, lane, s);
   }
 

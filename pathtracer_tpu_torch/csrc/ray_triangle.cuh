@@ -111,4 +111,26 @@ __device__ __forceinline__ float box_enter(const float* box, const Ray& r,
   return ok ? nan_max(t_near, 0.0f) : INFINITY;
 }
 
+// The same entry, widened for a cull that must never drop a box holding an
+// accepted hit: the slab entry and the Moller-Trumbore t round differently,
+// so an interval empty by less than `slack` of the entry counts as entered.
+__device__ __forceinline__ float box_enter_widened(const float* box, const Ray& r,
+                                                   const float inv[3], float slack) {
+  float t_near, t_far;
+  slab(box, r, inv, t_near, t_far);
+  const float e = nan_max(t_near, 0.0f);
+  const bool ok = t_far >= e * (1.0f - slack) && t_far > 0.0f && box[0] <= box[3];
+  return ok ? e : INFINITY;
+}
+
+// A lane at bound `best` needs a box entered at `e` (box_enter_widened) when
+// the entry, less the slack, is within the bound: closest lanes also take
+// entries equal to best (a later box may hold an equal t at a smaller id);
+// any-hit lanes only a hit strictly before the bound.
+template <bool kAnyHit>
+__device__ __forceinline__ bool improvable(float e, float best, float slack) {
+  const float s = e * (1.0f - slack);
+  return kAnyHit ? s < best : (s <= best && e < INFINITY);
+}
+
 }  // namespace

@@ -34,8 +34,9 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: (argtypes, restype).
 _SIGNATURES = {
-    "pt_small_closest": ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
-    "pt_small_occluded": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
+    "pt_small_closest": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    "pt_small_occluded": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P], _I),
+    "pt_small_warps_per_sm": ([_I], _I),
     "pt_shortlist_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_shortlist_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P], _I),
     "pt_shortlist_blocks_per_sm": ([_I, _I], _I),

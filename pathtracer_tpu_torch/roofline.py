@@ -11,7 +11,8 @@ held to the same work whatever implements it. ``chip_smoke.py`` reports it as
   u + v; times the tests these inputs need (``tests_needed``); over the
   card's 67 TFLOP/s in float32 outside the tensor cores.
 - Bytes: per ray 24 of origin and direction, plus 4 of cutoff for any-hit;
-  out 12 (t and id) or 1 (the flag); 64 per table row, read once; over
+  out 12 (t and id; 24 with the small kernel's normal and material) or 1
+  (the flag); 64 per table row, read once; over
   3.35 TB/s.
 
 The bound is the larger of the two (NVIDIA's data sheet, H100 SXM, at the
@@ -55,9 +56,17 @@ def tests_needed(scene, o, d, t_stop, occluded=None) -> int:
     return int(total)
 
 
-def bound_ms(tests: int, rays: int, table_rows: int, any_hit: bool) -> tuple[float, str]:
-    """(least milliseconds, "operations" or "bytes", whichever bounds it)."""
+def bound_ms(tests: int, rays: int, table_rows: int, any_hit: bool,
+             out_bytes: int | None = None) -> tuple[float, str]:
+    """(least milliseconds, "operations" or "bytes", whichever bounds it).
+
+    ``out_bytes``: the bytes written per ray, where the call writes more than
+    the module's default (the small kernel's closest entry: t, id, normal and
+    material, 24).
+    """
     ops_s = FLOPS_PER_TEST * tests / PEAK_F32_FLOPS
-    per_ray = 24 + 4 + 1 if any_hit else 24 + 12
+    if out_bytes is None:
+        out_bytes = 1 if any_hit else 12
+    per_ray = 24 + (4 if any_hit else 0) + out_bytes
     bytes_s = (per_ray * rays + ROW_BYTES * table_rows) / PEAK_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"

@@ -32,6 +32,7 @@ every reading, and each variant's mean over the rounds.
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import types
@@ -59,28 +60,31 @@ def variants() -> dict:
     return out
 
 
-def build(names_edits: dict, source: str = SOURCE) -> dict:
-    """Build every variant of ``csrc/<source>``; name -> (library path,
-    ptxas's figures, one line per entry: ``kernel<true>`` is the occluded
-    entry, ``kernel<false>`` the closest one)."""
+def build(names_edits: dict, source: str = SOURCE, csrc: str | None = None) -> dict:
+    """Build every variant of ``<csrc>/<source>`` (``csrc`` the port's own by
+    default); name -> (library path, ptxas's figures, one line per entry:
+    ``kernel<true>`` or an entry named "occluded" is the occluded entry, the
+    other the closest one)."""
     from pathtracer_tpu_torch import kernels
 
-    with open(os.path.join(kernels.CSRC, source)) as f:
+    csrc = csrc or kernels.CSRC
+    with open(os.path.join(csrc, source)) as f:
         src = f.read()
     out_dir = os.path.join(kernels.BUILD_DIR, "variants", os.path.splitext(source)[0])
     os.makedirs(out_dir, exist_ok=True)
     nvcc = kernels._nvcc()
     procs = {}
-    for i, (name, edits) in enumerate(names_edits.items()):
+    for name, edits in names_edits.items():
         text = src
         for old, new in edits:
             assert text.count(old) == 1, (name, old)
             text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"v{i}.cu")
+        stem = os.path.join(out_dir, re.sub(r"[^A-Za-z0-9]+", "_", name))
+        cu = f"{stem}.cu"
         with open(cu, "w") as f:
             f.write(text)
-        so = os.path.join(out_dir, f"v{i}.so")
-        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", kernels.CSRC, "-shared", "-o", so, cu]
+        so = f"{stem}.so"
+        cmd = [nvcc, *kernels.NVCC_FLAGS, "-I", csrc, "-shared", "-o", so, cu]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     built = {}
@@ -90,7 +94,7 @@ def build(names_edits: dict, source: str = SOURCE) -> dict:
         figures, entry = {}, "?"
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
-                entry = "occluded" if "ILb1E" in ln else "closest"
+                entry = "occluded" if "ILb1E" in ln or "occluded" in ln else "closest"
             elif "registers" in ln or "spill" in ln:
                 figures.setdefault(entry, []).append(ln.split("info    : ")[-1].strip())
         built[name] = (so, [f"{e}: {', '.join(v)}" for e, v in sorted(figures.items())])

@@ -44,23 +44,47 @@ def _rays(dev, n=1 << 16):
             torch.as_tensor(d, dtype=torch.float32, device=dev))
 
 
-@pytest.mark.parametrize("mesh", ["cornell", "soup250"])
-def test_kernels_equal_plain_on_card(cuda, mesh):
+@pytest.mark.parametrize("mesh,n", [("cornell", 1 << 16), ("cornell", (1 << 18) - 1),
+                                    ("cornell", 1_000_003), ("soup250", 1 << 16),
+                                    ("soup250", (1 << 18) - 1)])
+def test_kernels_equal_plain_on_card(cuda, mesh, n):
+    """The small kernel's entries equal their plain versions on rays with
+    about a quarter of the lanes parked (origin 1e6, direction +x), with
+    cutoffs around the hit and 0 on every seventh lane; the lanes it sweeps
+    are those of its rule, ``lanes_to_sweep``. 1,000,003 rays are more than
+    the card holds at once, so each block takes several chunks."""
     m = (procedural.cornell_box_mesh() if mesh == "cornell"
          else procedural.triangle_soup_mesh(250, seed=1))
     scene = scene_from_packed(pack_scene(m), cuda)
-    o, d = _rays(cuda)
+    o, d = _rays(cuda, n)
+    parked = torch.as_tensor(np.random.default_rng(4).random(n) < 0.25, device=cuda)
+    o[parked] = 1.0e6
+    d[parked] = torch.tensor([1.0, 0.0, 0.0], device=cuda)
     before = dict(small.launches)
-    got = small.closest_tri_small(scene, o, d)
-    ref = small.closest_tri_small_plain(scene, o, d)
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
-    t_cut = torch.where(torch.isfinite(ref[0]), ref[0], 1.0) * 0.8
-    occ, hit_any = small.occluded_tri_small(scene, o, d, t_cut, True)
-    occ_p, any_p = small.occluded_tri_small_plain(scene, o, d, t_cut, True)
-    assert torch.equal(occ, occ_p) and torch.equal(hit_any, any_p)
+    small.lane_counts = {}
+    try:
+        got = small.closest_tri_small(scene, o, d)
+        ref = small.closest_tri_small_plain(scene, o, d)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        t_cut = torch.where(torch.isfinite(ref[0]), ref[0], 1.0) * 0.8
+        t_cut[::7] = 0.0
+        for want_any in (False, True):
+            occ, hit_any = small.occluded_tri_small(scene, o, d, t_cut, want_any)
+            occ_p, any_p = small.occluded_tri_small_plain(scene, o, d, t_cut, want_any)
+            assert torch.equal(occ, occ_p)
+            assert torch.equal(hit_any, any_p) if want_any else hit_any is None
+        counts = small.lane_counts
+    finally:
+        small.lane_counts = None
+    assert counts["closest"][0] == n and counts["occluded"][0] == 2 * n
+    rule = [small.lanes_to_sweep(scene, o, d).sum()] + [
+        small.lanes_to_sweep(scene, o, d, t_cut, want_any).sum() for want_any in (False, True)]
+    assert int(counts["closest"][1]) == int(rule[0])
+    assert int(counts["occluded"][1]) == int(rule[1] + rule[2])
+    assert int(rule[0]) <= n - int(parked.sum())  # no parked lane is swept
     assert small.launches["closest"] == before["closest"] + 1
-    assert small.launches["occluded"] == before["occluded"] + 1
+    assert small.launches["occluded"] == before["occluded"] + 2
 
 
 def test_card_render_equals_cpu_render(cuda):

@@ -24,6 +24,7 @@ from pathtracer_tpu.models.scene import RenderSettings as JaxSettings
 from pathtracer_tpu.models.scene import _to_device
 from pathtracer_tpu.ops import intersect as jint
 from pathtracer_tpu.ops.intersect_small_pallas import (
+    _tri_table_small,
     closest_tri_small_pallas_attrs,
     occluded_tri_small_pallas,
 )
@@ -120,6 +121,76 @@ def test_small_plain_matches_pallas_interpret(scenes, rays, name):
     np.testing.assert_array_equal(occ.numpy(), np.asarray(occ_ref))
     np.testing.assert_array_equal(hit_any.numpy(), np.isfinite(np.asarray(t_ref)))
     assert 0 < occ.sum() < occ.numel()
+    assert small.launches == {"closest": 0, "occluded": 0}
+
+
+@pytest.mark.parametrize("name", ["cornell36", "cornell37", "soup250"])
+def test_small_rows_are_the_valid_rows_of_the_pallas_table(scenes, name):
+    """The kernel's rows: the JAX table's valid rows in increasing id, the
+    id kept in column 10, the same on the host; the root box is the bounds
+    of their vertices as JAX adds them."""
+    jscene, scene = scenes[name]
+    rows, rows_host, box = small.small_rows(scene)
+    jtab = np.asarray(_tri_table_small(jscene))
+    want = jtab[jtab[:, 9] > 0.5]
+    np.testing.assert_array_equal(rows.numpy(), want)
+    np.testing.assert_array_equal(rows_host.numpy(), want)
+    assert rows.shape[0] == scene.num_tris
+    assert np.all(np.diff(rows.numpy()[:, 10]) > 0)
+    v0 = jnp.asarray(want[:, 0:3])
+    pts = np.concatenate([np.asarray(v0), np.asarray(v0 + want[:, 3:6]),
+                          np.asarray(v0 + want[:, 6:9])])
+    np.testing.assert_array_equal(box.numpy(), np.concatenate([pts.min(0), pts.max(0)]))
+    assert small.small_rows(scene)[2] is box  # kept in scene.cache
+
+
+def _parked(o, d, share=0.25, seed=12):
+    """Rays with about ``share`` of the lanes parked as the integrator parks
+    dead lanes (origin 1e6, direction +x)."""
+    lanes = np.random.default_rng(seed).random(o.shape[0]) < share
+    o, d = o.copy(), d.copy()
+    o[lanes], d[lanes] = 1.0e6, (1.0, 0.0, 0.0)
+    return o, d, lanes
+
+
+@pytest.mark.parametrize("name", ["cornell36", "soup250"])
+def test_small_skip_rule_keeps_every_hit_of_pallas_interpret(scenes, rays, name):
+    """Parked lanes and cutoff-0 lanes: the port's answers equal the
+    interpret-mode Pallas kernel's, and the kernel's skip rule
+    (``lanes_to_sweep``) keeps every lane with a hit, an occlusion or a
+    hit_any to find while it skips every parked lane and, without hit_any,
+    every cutoff-0 lane."""
+    jscene, scene = scenes[name]
+    o, d, parked = _parked(*rays)
+    jo, jd, to, td = jnp.asarray(o), jnp.asarray(d), torch.as_tensor(o), torch.as_tensor(d)
+    t_ref, id_ref, n_ref, m_ref = closest_tri_small_pallas_attrs(jscene, jo, jd, interpret=True)
+    t, tri_id, n_geo, mat_id = small.closest_tri_small(scene, to, td)
+    _close_t(t.numpy(), t_ref, _rtol(name))
+    np.testing.assert_array_equal(tri_id.numpy(), np.asarray(id_ref))
+    h = np.isfinite(np.asarray(t_ref))
+    np.testing.assert_array_equal(n_geo.numpy()[h], np.asarray(n_ref)[h])
+    np.testing.assert_array_equal(mat_id.numpy()[h], np.asarray(m_ref)[h])
+    assert not h[parked].any() and h.any()
+    swept = small.lanes_to_sweep(scene, to, td).numpy()
+    assert swept[h].all() and not swept[parked].any()
+
+    t_cut = np.where(h, np.asarray(t_ref), 1.0).astype(np.float32)
+    t_cut *= np.random.default_rng(6).uniform(0.5, 1.5, t_cut.shape).astype(np.float32)
+    t_cut[::7] = 0.0
+    occ_ref = np.asarray(occluded_tri_small_pallas(jscene, jo, jd, jnp.asarray(t_cut),
+                                                   interpret=True))
+    tc = torch.as_tensor(t_cut)
+    for want_any in (False, True):
+        occ, hit_any = small.occluded_tri_small(scene, to, td, tc, want_any)
+        np.testing.assert_array_equal(occ.numpy(), occ_ref)
+        swept = small.lanes_to_sweep(scene, to, td, tc, want_any).numpy()
+        assert swept[occ_ref].all() and not swept[parked].any()
+        if want_any:
+            np.testing.assert_array_equal(hit_any.numpy(), h)
+            assert swept[h].all()
+        else:
+            assert not swept[::7].any()
+    assert 0 < occ_ref.sum() and not occ_ref[::7].any()
     assert small.launches == {"closest": 0, "occluded": 0}
 
 
