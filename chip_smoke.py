@@ -56,27 +56,33 @@ non-zero):
                 One more "auto" render under torch.profiler: shortlist kernel
                 ms per render, device busy (the union of the device's kernel
                 and copy intervals) and its share of the unprofiled walls.
-10. oracles  -- the tiled kernel ("pallas"), both entries, against its plain
-                versions (the brute sweeps), and the cluster kernel
-                ("cluster") against its plain twin and brute, on the 262,144
-                rays of phase 7 and on 262,143, on the Cornell box, the band
-                stand-in (1,116
-                triangles, 1,152 padded) and both torus stand-ins: t 0 ULP,
-                ids equal on hit lanes; the any-hit entry's occlusion and
-                hit_any equal brute's, with cutoffs around the nearest hit
-                and with every seventh cutoff 0; all timed, the any-hit entry
-                and the shortlist kernel on the band stand-in too. Then the
-                tiled kernel against brute on phase 7's 516-cluster
-                stand-in at 65,535 rays (no cap), timed; ptxas's registers
-                and spills of the tiled kernel and its resident warps per SM.
+10. oracles  -- the tiled ("pallas") and cluster ("cluster") kernels, both
+                entries each, against the brute sweeps and their plain
+                versions (the tiled kernel's are the brute sweeps, the
+                cluster kernel's its twin and t < t_cut, isfinite(t) of it),
+                on the 262,144 rays of phase 7 and on 262,143, on the Cornell
+                box, the band stand-in (1,116 triangles, 1,152 padded) and
+                both torus stand-ins: closest t 0 ULP, ids equal on hit lanes;
+                occlusion and hit_any equal, with cutoffs around the nearest
+                hit and with every seventh cutoff 0 (lanes where the twin
+                misses brute's answer, a defect of the JAX kernel's cull, are
+                printed with their inputs and compared with brute only). All
+                four entries timed on those rays and on the same sorted as
+                the pool sorts its lanes on the cluster route, beside the
+                bound and the plain versions; the shortlist kernel on the
+                band stand-in too. Then the same checks and times on phase
+                7's 516-cluster stand-in at 65,535 rays (no cap); ptxas's
+                registers and spills of both kernels and their resident warps
+                per SM.
 11. band     -- the band stand-in at 512^2, spp 4, depth 17, regen, 2^18
                 lanes through "auto", "pallas", "cluster", "shortlist_pallas"
                 and "brute", each once after a warm-up: equal rays traced,
                 image MSE <= 1e-6 against brute; "auto" launched the kernel it
-                resolves to; wall time and rays/s of each. One more "auto"
-                render, then one under torch.profiler: tiled kernel ms per
-                render (closest and occluded), device busy and its share of
-                the unprofiled walls, device intervals per pool iteration.
+                resolves to; wall time and rays/s of each. For "auto" and
+                "cluster", one more render, then one under torch.profiler:
+                kernel ms per render (closest and occluded, one launch of
+                each per pool iteration), device busy and its share of the
+                unprofiled walls, device intervals per pool iteration.
 12. cli-oracles -- the CLI renders the band stand-in's files at 128^2, spp 4
                 with --intersector pallas and with --intersector cluster; each
                 launches its kernel.
@@ -792,7 +798,7 @@ def device_spans(prof) -> list:
 
 def entry_spans(spans, kernel: str = "shortlist_kernel") -> dict:
     """The durations (us) in ``spans`` of a kernel templated on its any-hit
-    flag (the small, shortlist or tiled kernel), by entry."""
+    flag (the small, shortlist, tiled or cluster kernel), by entry."""
     # The entry's template flag, demangled (<true>) or not (ILb1E).
     return {k: [b - a for a, b, nm in spans if kernel in nm
                 and (f"<{flag}>" in nm or f"ILb{int(flag == 'true')}E" in nm)]
@@ -850,153 +856,210 @@ def band_scene(dev):
     return scene
 
 
-def check_tiled_occluded(label, scene, o, d, t_b, cut_scale):
-    """The any-hit entry, with and without hit_any, equals the brute sweep on
-    cutoffs ``t_b * cut_scale`` and on the same with every seventh cutoff 0
-    -> (the first cutoffs, brute's occlusion on them)."""
-    from pathtracer_tpu_torch.ops import intersect as tint
+def sorted_lanes(scene, o, d):
+    """The order in which the pool sorts these lanes on the cluster route:
+    ``wavefront._sort_key`` over ``_sort_bounds(scene)``, every lane alive,
+    stable."""
+    from pathtracer_tpu_torch.ops.wavefront import _sort_bounds, _sort_key
+
+    alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    return torch.sort(_sort_key(o, d, alive, *_sort_bounds(scene)), stable=True).indices
+
+
+def twin_defects(label, o, d, plain, brute):
+    """Lanes where the cluster twin (the JAX kernel's cull, unwidened) misses
+    the brute sweep's answer, each printed with its inputs: there brute is the
+    kernels' contract, and the lane is a defect of the JAX kernel's cull."""
+    (t_p, id_p), (t_b, id_b) = plain, brute
+    bad = (t_p != t_b) | (torch.isfinite(t_b) & (id_p != id_b))
+    for lane in torch.nonzero(bad).squeeze(1)[:8].tolist():
+        log("oracles", f"{label}: the cluster twin misses lane {lane}: o {o[lane].tolist()} "
+            f"d {d[lane].tolist()}: twin t {t_p[lane].item()!r} id {id_p[lane].item()}, "
+            f"brute t {t_b[lane].item()!r} id {id_b[lane].item()}")
+    return bad
+
+
+def oracle_entries() -> dict:
+    """family -> (closest entry, any-hit entry) of the tiled and cluster
+    kernels' wrappers."""
+    from pathtracer_tpu_torch.ops import intersect_cluster as ic
     from pathtracer_tpu_torch.ops import intersect_tiled as it
 
-    t_cut = torch.where(torch.isfinite(t_b), t_b, 1.0) * cut_scale
+    return {"tiled": (it.closest_tri_tiled, it.occluded_tri_tiled),
+            "cluster": (ic.closest_tri_cluster, ic.occluded_tri_cluster)}
+
+
+def check_oracles(label, scene, o, d, cut_scale):
+    """Both entries of the tiled and cluster kernels against the brute sweeps
+    and their plain versions (the tiled kernel's are the brute sweeps; the
+    cluster kernel's the twin, and t < t_cut, isfinite(t) of it, compared on
+    the lanes where the twin holds brute's answer): closest t 0 ULP, ids on
+    hit lanes, -1 elsewhere; occlusion and hit_any equal, with and without
+    hit_any, on cutoffs around brute's hit and on the same with every seventh
+    0 -> (brute's t, the first cutoffs, brute's occlusion on them, each
+    family's largest error against its plain version by entry, the twin's
+    defect lanes)."""
+    from pathtracer_tpu_torch.ops import intersect as tint
+    from pathtracer_tpu_torch.ops import intersect_cluster as ic
+
+    brute = tint.closest_tri_brute(scene, o, d)
+    twin = ic.closest_tri_cluster_plain(scene, o, d)
+    torch.cuda.synchronize()
+    every = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    keep = ~twin_defects(label, o, d, twin, brute)
+    t_cut = torch.where(torch.isfinite(brute[0]), brute[0], 1.0) * cut_scale
     parked = t_cut.clone()
     parked[::7] = 0.0
-    occluded = []
-    for cut in (t_cut, parked):
-        occ_b, any_b = tint._occluded_tri_brute(scene, o, d, cut)
-        occluded.append(occ_b)
-        for want_any in (False, True):
-            occ, hit_any = it.occluded_tri_tiled(scene, o, d, cut, want_any)
-            torch.cuda.synchronize()
-            assert torch.equal(occ, occ_b), f"{label}: tiled occluded differs from brute"
-            if want_any:
-                assert torch.equal(hit_any, any_b), f"{label}: tiled hit_any differs from brute"
-    return t_cut, occluded[0]
+    cuts = (t_cut, parked)
+    flags = {"brute": [tint._occluded_tri_brute(scene, o, d, cut) for cut in cuts],
+             "plain": [ic.occluded_tri_cluster_plain(scene, o, d, cut, True) for cut in cuts]}
+    # family -> the references of its entries: (name, closest, flags, lanes)
+    refs = {"tiled": [("brute", brute, flags["brute"], every)],
+            "cluster": [("brute", brute, flags["brute"], every),
+                        ("plain", twin, flags["plain"], keep)]}
+    err = {}
+    for fam, (closest, occluded) in oracle_entries().items():
+        _, (t_p, _), flags_p, lanes_p = refs[fam][-1]  # the plain version
+        t, tri = closest(scene, o, d)
+        torch.cuda.synchronize()
+        for ref_name, (t_r, id_r), _, lanes in refs[fam]:
+            assert_same_hits(f"{fam} {label}", scene, o[lanes], d[lanes], t[lanes], tri[lanes],
+                             ref_name, (t_r[lanes], id_r[lanes]))
+        fin = torch.isfinite(t_p) & lanes_p
+        occ_err = 0.0
+        for i, cut in enumerate(cuts):
+            for want_any in (False, True):
+                occ, hit_any = occluded(scene, o, d, cut, want_any)
+                torch.cuda.synchronize()
+                for ref_name, _, ref_flags, lanes in refs[fam]:
+                    occ_r, any_r = ref_flags[i]
+                    assert torch.equal(occ[lanes], occ_r[lanes]), (
+                        f"{fam} {label}: occluded differs from {ref_name}")
+                    if want_any:
+                        assert torch.equal(hit_any[lanes], any_r[lanes]), (
+                            f"{fam} {label}: hit_any differs from {ref_name}")
+                occ_err = max(occ_err, (occ[lanes_p].float()
+                                        - flags_p[i][0][lanes_p].float()).abs().max().item())
+        err[fam] = {"closest": (t[fin] - t_p[fin]).abs().max().item() if fin.any() else 0.0,
+                    "occluded": occ_err}
+    return brute[0], t_cut, flags["brute"][0][0], err, int((~keep).sum())
+
+
+def time_oracles(scene, o, d, cut) -> dict:
+    """Both entries of each family by ``event_ms`` on rays ``o``, ``d`` with
+    cutoffs ``cut``, as they come and sorted as the pool sorts them ->
+    {"<family> <order>": {"closest": ms, "occluded": ms}}."""
+    perm = sorted_lanes(scene, o, d)
+    orders = {"unsorted": (o, d, cut),
+              "sorted": tuple(x[perm].contiguous() for x in (o, d, cut))}
+    return {f"{fam} {order}": {
+                "closest": event_ms(lambda: closest(scene, oo, dd)),
+                "occluded": event_ms(lambda: occluded(scene, oo, dd, cc))}
+            for order, (oo, dd, cc) in orders.items()
+            for fam, (closest, occluded) in oracle_entries().items()}
+
+
+def times_text(ms, bound) -> str:
+    """Each timed family and order: both entries' ms and their shares of the
+    bound."""
+    return "; ".join(
+        f"{key} closest {v['closest']:.4f} ms (share {bound['closest'][0] / v['closest']:.4f}), "
+        f"occluded {v['occluded']:.4f} ms (share {bound['occluded'][0] / v['occluded']:.4f})"
+        for key, v in ms.items())
 
 
 def phase_oracles(dev):
     from pathtracer_tpu_torch.ops import intersect as tint
     from pathtracer_tpu_torch.ops import intersect_cluster as ic
     from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
-    from pathtracer_tpu_torch.ops import intersect_tiled as it
 
     o, d, cut_scale = smoke_rays(dev)
-    # kernel, its plain version (None: the brute sweep itself)
-    kernels = {"tiled": (it.closest_tri_tiled, None),
-               "cluster": (ic.closest_tri_cluster, ic.closest_tri_cluster_plain)}
     scenes = [smoke_scenes(dev)[0], ("band1152", band_scene(dev)), *stand_in_scenes(dev)]
     records = {}
     for name, scene in scenes:
         for n in (N_RAYS, N_RAYS - 1):
-            oo, dd = o[:n], d[:n]
-            brute = tint.closest_tri_brute(scene, oo, dd)
-            err = {}
-            for kname, (kernel, plain) in kernels.items():
-                t, tri = kernel(scene, oo, dd)
-                refs = {"brute": brute}
-                if plain is not None:
-                    refs["plain"] = plain(scene, oo, dd)
-                torch.cuda.synchronize()
-                for ref_name, ref in refs.items():
-                    assert_same_hits(f"{kname} {name} n={n}", scene, oo, dd, t, tri,
-                                     ref_name, ref)
-                t_p = refs.get("plain", brute)[0]
-                fin = torch.isfinite(t_p)
-                err[kname] = (t[fin] - t_p[fin]).abs().max().item() if fin.any() else 0.0
-            t_cut, occ_b = check_tiled_occluded(f"{name} n={n}", scene, oo, dd, brute[0],
-                                                cut_scale[:n])
+            t_b, cut, occ_b, err, defects = check_oracles(f"{name} n={n}", scene, o[:n], d[:n],
+                                                           cut_scale[:n])
             log("oracles", f"{name} T={scene.num_tris} rays={n} "
-                f"hits={int(torch.isfinite(brute[0]).sum())} occluded={int(occ_b.sum())}: "
-                "tiled and cluster t 0 ULP from their plain versions "
-                "and brute, ids equal on hit lanes; tiled occlusion and hit_any equal "
-                "brute's (cutoffs around the hit, and every seventh 0)")
+                f"hits={int(torch.isfinite(t_b).sum())} occluded={int(occ_b.sum())}: tiled "
+                "and cluster closest t 0 ULP from brute and their plain versions, ids equal "
+                "on hit lanes; occlusion and hit_any equal brute's and the plain versions' "
+                f"(cutoffs around the hit, and every seventh 0); twin defect lanes {defects}")
             if n == N_RAYS:
-                cut = t_cut
-                bound = {"closest": kernel_bound(scene, o, d, brute[0]),
-                         "occluded": kernel_bound(scene, o, d, cut, occ_b)}
-                occ_err = (it.occluded_tri_tiled(scene, o, d, cut)[0].float()
-                           - occ_b.float()).abs().max().item()
-                errors = {"tiled": {"closest": err["tiled"], "occluded": occ_err},
-                          "cluster": {"closest": err["cluster"]}}
-        ms = {
-            "tiled": event_ms(lambda: it.closest_tri_tiled(scene, o, d)),
-            "tiled_plain": event_ms(lambda: tint.closest_tri_brute(scene, o, d), TIMED_PLAIN),
-            "tiled_occluded": event_ms(lambda: it.occluded_tri_tiled(scene, o, d, cut)),
-            "tiled_occluded_plain": event_ms(
-                lambda: tint._occluded_tri_brute(scene, o, d, cut), TIMED_PLAIN),
-            "cluster": event_ms(lambda: ic.closest_tri_cluster(scene, o, d)),
-            "cluster_plain": event_ms(lambda: ic.closest_tri_cluster_plain(scene, o, d),
-                                      TIMED_PLAIN),
-        }
-        tiled_ms = {"closest": ms["tiled"], "closest_plain": ms["tiled_plain"],
-                    "occluded": ms["tiled_occluded"],
-                    "occluded_plain": ms["tiled_occluded_plain"]}
-        records[name] = (tiled_ms, {"closest": ms["cluster"], "closest_plain": ms["cluster_plain"]},
-                         errors, bound)
+                errors, t_stop, t_cut, occ_stop = err, t_b, cut, occ_b
+        ms = time_oracles(scene, o, d, t_cut)
+        plain = {"tiled": {"closest": event_ms(lambda: tint.closest_tri_brute(scene, o, d),
+                                               TIMED_PLAIN),
+                           "occluded": event_ms(
+                               lambda: tint._occluded_tri_brute(scene, o, d, t_cut),
+                               TIMED_PLAIN)},
+                 "cluster": {"closest": event_ms(lambda: ic.closest_tri_cluster_plain(scene, o, d),
+                                                 TIMED_PLAIN),
+                             "occluded": event_ms(lambda: ic.occluded_tri_cluster_plain(
+                                 scene, o, d, t_cut), TIMED_PLAIN)}}
+        bound = {"closest": kernel_bound(scene, o, d, t_stop),
+                 "occluded": kernel_bound(scene, o, d, t_cut, occ_stop)}
+        records[name] = ({fam: {**ms[f"{fam} unsorted"],
+                                **{f"{k}_plain": v for k, v in plain[fam].items()}}
+                          for fam in plain}, errors, bound)
         (b, by), (bo, byo) = bound["closest"], bound["occluded"]
-        log("oracles", f"{name} at {N_RAYS} rays: tiled closest {ms['tiled']:.4f} ms vs "
-            f"plain (brute) {ms['tiled_plain']:.4f} ms; tiled occluded "
-            f"{ms['tiled_occluded']:.4f} ms vs plain (brute) "
-            f"{ms['tiled_occluded_plain']:.4f} ms; cluster {ms['cluster']:.4f} ms vs twin "
-            f"{ms['cluster_plain']:.4f} ms; closest bound {b:.6f} ms ({by}), share tiled "
-            f"{b / ms['tiled']:.4f}, cluster {b / ms['cluster']:.4f}; occluded bound {bo:.6f} ms ({byo}), share tiled "
-            f"{bo / ms['tiled_occluded']:.4f}")
+        log("oracles", f"{name} at {N_RAYS} rays: closest bound {b:.6f} ms ({by}), occluded "
+            f"bound {bo:.6f} ms ({byo}); {times_text(ms, bound)}; plain: brute "
+            f"{plain['tiled']['closest']:.4f} / {plain['tiled']['occluded']:.4f} ms, cluster "
+            f"twin {plain['cluster']['closest']:.4f} / {plain['cluster']['occluded']:.4f} ms")
         if name == "band1152":
             sl = {"closest": event_ms(lambda: sk.closest_tri_shortlist_kernel(scene, o, d)),
                   "occluded": event_ms(
-                      lambda: sk.occluded_tri_shortlist_kernel(scene, o, d, cut))}
+                      lambda: sk.occluded_tri_shortlist_kernel(scene, o, d, t_cut))}
             log("oracles", f"{name} at {N_RAYS} rays: the shortlist kernel, which culls "
                 f"the same way: closest {sl['closest']:.4f} ms, occluded "
                 f"{sl['occluded']:.4f} ms; {bound_text(sl, bound)}")
 
-    tiled_largest_check(dev, o, d, cut_scale)
-    tiled_occupancy(scenes[1][1])
+    largest_oracle_check(dev, o, d, cut_scale)
+    oracle_occupancy(scenes[1][1])
     return records
 
 
-def tiled_largest_check(dev, o, d, cut_scale) -> None:
-    """The tiled kernel against brute on phase 7's 516-cluster stand-in: no
-    cap."""
+def largest_oracle_check(dev, o, d, cut_scale) -> None:
+    """The tiled and cluster kernels against brute and their plain versions
+    on phase 7's 516-cluster stand-in: no cap."""
     from pathtracer_tpu_torch.models.pack import pack_scene
     from pathtracer_tpu_torch.models.procedural import torus_cornell_mesh
     from pathtracer_tpu_torch.models.scene import scene_from_packed
-    from pathtracer_tpu_torch.ops import intersect as tint
-    from pathtracer_tpu_torch.ops import intersect_tiled as it
 
     scene = scene_from_packed(pack_scene(torus_cornell_mesh(*LARGEST_MESH)), dev)
     lanes = torch.arange(LARGEST_RAYS, device=dev) * 4
     oo, dd = o[lanes].contiguous(), d[lanes].contiguous()
-    label = f"tiled torus{scene.num_tris} n={LARGEST_RAYS}"
-    t, tri = it.closest_tri_tiled(scene, oo, dd)
-    ref = tint.closest_tri_brute(scene, oo, dd)
-    torch.cuda.synchronize()
-    assert_same_hits(label, scene, oo, dd, t, tri, "brute", ref)
-    t_cut, occ_b = check_tiled_occluded(label, scene, oo, dd, ref[0], cut_scale[lanes])
-    ms = {"closest": event_ms(lambda: it.closest_tri_tiled(scene, oo, dd)),
-          "occluded": event_ms(lambda: it.occluded_tri_tiled(scene, oo, dd, t_cut))}
-    bound = {"closest": kernel_bound(scene, oo, dd, ref[0]),
+    label = f"torus{scene.num_tris} n={LARGEST_RAYS}"
+    t_b, t_cut, occ_b, _, defects = check_oracles(label, scene, oo, dd, cut_scale[lanes])
+    ms = time_oracles(scene, oo, dd, t_cut)
+    bound = {"closest": kernel_bound(scene, oo, dd, t_b),
              "occluded": kernel_bound(scene, oo, dd, t_cut, occ_b)}
     log("oracles", f"torus{scene.num_tris} ({scene.padded_tris // 128} tiles) "
-        f"rays={LARGEST_RAYS} hits={int(torch.isfinite(t).sum())} occluded="
-        f"{int(occ_b.sum())}: tiled t 0 ULP from brute, ids equal on hit lanes, occlusion "
-        f"and hit_any equal to brute; closest {ms['closest']:.4f} ms, occluded "
-        f"{ms['occluded']:.4f} ms; {bound_text(ms, bound)}")
+        f"rays={LARGEST_RAYS} hits={int(torch.isfinite(t_b).sum())} occluded="
+        f"{int(occ_b.sum())}: tiled and cluster t 0 ULP from brute and their plain versions, "
+        f"ids equal on hit lanes, occlusion and hit_any equal; twin defect lanes {defects}; "
+        f"{bound_text(ms['tiled unsorted'], bound)}; {times_text(ms, bound)}")
 
 
-def tiled_occupancy(scene) -> None:
-    """ptxas's registers and spills of the tiled kernel's entries (none may
-    spill) and their resident warps per SM on ``scene``'s tiles."""
+def oracle_occupancy(scene) -> None:
+    """ptxas's registers and spills of the tiled and cluster kernels' entries
+    (none may spill) and their resident warps per SM on ``scene``'s tiles."""
     from pathtracer_tpu_torch import kernels
 
-    for entry, lines in ptxas_report().items():
-        if "tiled_kernel" in entry:
-            assert not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines), lines
-            log("oracles", f"ptxas {entry}: {'; '.join(lines)}")
+    lib = kernels.library()
     c = scene.padded_tris // 128
-    for any_hit, entry in ((0, "closest"), (1, "occluded")):
-        blocks = kernels.library().pt_tiled_blocks_per_sm(c, any_hit)
-        assert blocks > 0, f"occupancy query failed: {blocks}"
-        log("oracles", f"tiled {entry} at {c} tiles: {blocks} resident blocks of 4 warps "
-            f"per SM = {4 * blocks} warps")
+    for fam, blocks_per_sm in (("tiled", lib.pt_tiled_blocks_per_sm),
+                               ("cluster", lib.pt_cluster_blocks_per_sm)):
+        for entry, lines in ptxas_report().items():
+            if f"{fam}_kernel" in entry:
+                assert not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines), lines
+                log("oracles", f"ptxas {entry}: {'; '.join(lines)}")
+        for any_hit, entry in ((0, "closest"), (1, "occluded")):
+            blocks = blocks_per_sm(c, any_hit)
+            assert blocks > 0, f"occupancy query failed: {blocks}"
+            log("oracles", f"{fam} {entry} at {c} tiles: {blocks} resident blocks of 4 warps "
+                f"per SM = {4 * blocks} warps")
 
 
 def band_render(dev, size: int = LARGE_SIZE):
@@ -1048,14 +1111,17 @@ def phase_band(dev, pairs: int):
         err = torch.mean((img - img_b) ** 2).item()
         assert err <= 1e-6, f"image MSE {route} vs brute {err}"
     log("band", f"equal rays traced ({n_b}); image MSE <= 1e-6 against brute for every route")
-    again = run("auto")
-    fam = FAMILY[resolved]
-    profiled, profile = profiled_render(lambda: run("auto"), f"{fam}_kernel",
-                                        lambda out: out[4][fam])
-    assert profiled[1:3] == results["auto"][1:3], "the profiled render traced other rays"
-    log("band", f"auto (-> {resolved}) walls {results['auto'][3]:.4f}, {again[3]:.4f} s; "
-        "profiled render " + profile_text(profile, profiled[2],
-                                          [results["auto"][3], again[3]]))
+    for route in ("auto", "cluster"):  # auto's route, and the cluster kernel's
+        again = run(route)
+        fam = FAMILY[resolved if route == "auto" else route]
+        profiled, profile = profiled_render(lambda: run(route), f"{fam}_kernel",
+                                            lambda out: out[4][fam])
+        assert profiled[1:3] == results[route][1:3], "the profiled render traced other rays"
+        iters = profiled[2]
+        assert profiled[4][fam] == {"closest": iters, "occluded": iters}, profiled[4][fam]
+        log("band", f"{route} (-> {fam} kernel) walls {results[route][3]:.4f}, "
+            f"{again[3]:.4f} s; profiled render " + profile_text(
+                profile, iters, [results[route][3], again[3]]))
     if pairs:
         band_pairs(run, pairs)
     return {route: results[route][4][FAMILY[route]] for route in ("pallas", "cluster")}
@@ -1147,7 +1213,7 @@ def main(argv=None) -> int:
     band_launches = phase_band(dev, args.band_pairs)
     phase_cli_oracles(dev)
 
-    tiled_ms, cluster_ms, or_err, or_bound = or_ms["band1152"]
+    or_ms, or_err, or_bound = or_ms["band1152"]
     rows = []
     for family, source, replaces, counts, (k_ms, k_err, k_bound) in (
         ("intersect_small", "pathtracer_tpu_torch/csrc/intersect_small.cu",
@@ -1157,10 +1223,10 @@ def main(argv=None) -> int:
          sl_ms["torus12580"]),
         ("intersect_tiled", "pathtracer_tpu_torch/csrc/intersect_tiled.cu",
          "pathtracer_tpu/ops/intersect_pallas.py:120", band_launches["pallas"],
-         (tiled_ms, or_err["tiled"], or_bound)),
+         (or_ms["tiled"], or_err["tiled"], or_bound)),
         ("intersect_cluster", "pathtracer_tpu_torch/csrc/intersect_cluster.cu",
          "pathtracer_tpu/ops/intersect_cluster.py:182", band_launches["cluster"],
-         (cluster_ms, or_err["cluster"], or_bound)),
+         (or_ms["cluster"], or_err["cluster"], or_bound)),
     ):
         for entry in counts:
             bound, by = k_bound[entry]

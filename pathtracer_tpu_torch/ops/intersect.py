@@ -10,10 +10,10 @@ Port of ``pathtracer_tpu/ops/intersect.py``:
 - the block shortlist for scenes of >= 2048 padded triangles: the CUDA
   kernel (``ops.intersect_shortlist_kernel``) on a CUDA device, its plain
   torch twin (``ops.intersect_shortlist``) on the CPU;
-- the CUDA tiled kernel (``ops.intersect_tiled``, ``intersector="pallas"``,
-  closest hit and any-hit) and the CUDA cluster cull
-  (``ops.intersect_cluster``, ``intersector="cluster"``), each with its
-  plain version on the CPU;
+- the CUDA tiled kernel (``ops.intersect_tiled``, ``intersector="pallas"``)
+  and the CUDA cluster cull (``ops.intersect_cluster``,
+  ``intersector="cluster"``), closest hit and any-hit each, with their plain
+  versions on the CPU;
 - analytic unit sphere/cube primitives;
 - winner attributes and materials picked by indexing with the winning
   triangle and material ids.
@@ -63,8 +63,9 @@ _CLOSEST = {
 _OCCLUDED_ANY = {
     "small_pallas": intersect_small.occluded_tri_small,
     "pallas": intersect_tiled.occluded_tri_tiled,
+    "cluster": intersect_cluster.occluded_tri_cluster,
 }
-# Any-hit entry points without hit_any; the other routes of ``_CLOSEST``
+# Any-hit entry points without hit_any; under direct lighting these routes
 # answer occlusion with their closest-hit core, as in the JAX package.
 _SHORTLIST_OCCLUDED = {
     "shortlist": shortlist.occluded_tri_shortlist,
@@ -235,10 +236,9 @@ def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
         occ = _SHORTLIST_OCCLUDED[method](scene, o, d, t_cut)
         hit_any = occ  # consumed only by direct lighting, handled below
     elif method in _CLOSEST:
-        # The cluster kernel has no any-hit form, and direct lighting
-        # consumes "the shadow ray hit anything", which the shortlist's
-        # cutoff-bounded any-hit loop does not compute: the closest-hit core
-        # answers both, as in the JAX package.
+        # Direct lighting consumes "the shadow ray hit anything", which the
+        # shortlist's cutoff-bounded any-hit loop does not compute: the
+        # closest-hit core answers both, as in the JAX package.
         t_tri, _ = _CLOSEST[method](scene, o, d)
         occ, hit_any = t_tri < t_cut, torch.isfinite(t_tri)
     else:

@@ -1,29 +1,36 @@
-"""Cluster-culled closest hit: the CUDA kernel and its plain torch twin.
+"""Cluster-culled closest hit and any-hit: the CUDA kernel and its plain
+torch twin.
 
 Port of ``pathtracer_tpu/ops/intersect_cluster.py`` (``closest_tri_cluster``,
-``intersector="cluster"``). What both compute: triangles sit in packed
-(BVH-leaf) order, so each run of ``CLUSTER`` triangles is spatially tight and
-gets the box of its valid triangles. Rays go in groups of ``GROUP``
-consecutive lanes (the pool sorts its lanes for this route). The clusters are
-visited in index order; a cluster is swept only if some ray of the group
-enters its box before that ray's best ``t``, and then every ray of the group
-sweeps all its triangles with a strict ``<`` on ``t`` in id order. The slab
-math is JAX's: the sign-preserving ``1/max(|w|, 1e-12)``, ``enter =
+``intersector="cluster"``). What the JAX kernel computes: triangles sit in
+packed (BVH-leaf) order, so each run of ``CLUSTER`` triangles is spatially
+tight and gets the box of its valid triangles. Rays go in groups of
+``GROUP`` consecutive lanes (the pool sorts its lanes for this route). The
+clusters are visited in index order; a cluster is swept only if some ray of
+the group enters its box before that ray's best ``t``, and then every ray of
+the group sweeps all its triangles with a strict ``<`` on ``t`` in id order.
+The slab math is JAX's: the sign-preserving ``1/max(|w|, 1e-12)``, ``enter =
 max(t_near, 0)``, a box hit needs ``t_far >= t_near``, ``t_far > 0`` and
 ``lo <= hi`` (false for a cluster of padding only), bounds clamped to
 +-3e38.
 
-The kernel (``csrc/intersect_cluster.cu``) takes one group per 128-thread
-block and reads the shortlist kernel's table and boxes
-(``intersect_shortlist_kernel.kernel_table``); it computes each entry
-distance when it reaches the cluster, so it has no cluster cap. The JAX
-kernel's 1024-ray blocks and 512-triangle clusters were TPU sizes.
+The kernel (``csrc/intersect_cluster.cu``) computes the same function, the
+brute sweep's nearest ``t`` with the smallest id among equal ``t``, another
+way: per warp and per ray, over the shortlist kernel's table and 128-row
+boxes (``intersect_shortlist_kernel.kernel_table``), with a widened cull that
+never skips a cluster holding a ray's answer (``csrc/tile_walk.cuh``, the
+tiled kernel's walk). Its any-hit entry answers "some triangle before the
+per-ray cutoff" and, when asked, "some triangle at all": exactly ``t <
+t_cut`` and ``isfinite(t)``, which the JAX package computes from its closest
+hit on this route. No cluster cap.
 
-``closest_tri_cluster_plain`` is the kernel's plain version, at the kernel's
-cluster and group sizes by default. It calls ``intersect.mt_components``, so
-its ``t`` is bit-equal to ``intersect.closest_tri_brute``'s. The wrapper
-takes it for tensors on the CPU and launches the kernel for tensors on a CUDA
-device: a CUDA tensor never reaches the plain version. ``launches`` counts the
+``closest_tri_cluster_plain`` is the closest entry's plain version, the twin
+of the JAX kernel's cull at the kernel's cluster and group sizes by default.
+It calls ``intersect.mt_components``, so its ``t`` is bit-equal to
+``intersect.closest_tri_brute``'s. ``occluded_tri_cluster_plain`` is the
+any-hit entry's: ``t < t_cut`` and ``isfinite(t)`` of the twin. The wrappers
+take them for tensors on the CPU and launch the kernel for tensors on a CUDA
+device: a CUDA tensor never reaches a plain version. ``launches`` counts the
 kernel launches.
 """
 
@@ -32,15 +39,14 @@ from __future__ import annotations
 import torch
 
 from pathtracer_tpu_torch.ops import intersect_shortlist as shortlist
-from pathtracer_tpu_torch.ops.intersect_shortlist_kernel import kernel_table
-from pathtracer_tpu_torch.ops.intersect_small import check_rays
+from pathtracer_tpu_torch.ops.intersect_tiled import launch_closest, launch_occluded
 
 INF = float("inf")
 CLUSTER = 128  # triangles per cluster: the shortlist kernel's table and boxes
-GROUP = 128  # rays per cull decision: the kernel's threads per block
+GROUP = 128  # rays per cull decision of the twin
 
-# Kernel launches by entry point; only the wrapper below adds to it.
-launches = {"closest": 0}
+# Kernel launches by entry point; only the wrappers' launches add to it.
+launches = {"closest": 0, "occluded": 0}
 
 
 def closest_tri_cluster_plain(scene, o, d, cluster: int = CLUSTER, group: int = GROUP):
@@ -48,7 +54,7 @@ def closest_tri_cluster_plain(scene, o, d, cluster: int = CLUSTER, group: int = 
     miss; tri_id [B] i64, -1 on a miss).
 
     The last group is filled with rays at best ``t`` 0, which never make a
-    cluster live, as the kernel's threads past the batch do.
+    cluster live.
     """
     from pathtracer_tpu_torch.ops.intersect import mt_components
 
@@ -89,27 +95,27 @@ def closest_tri_cluster_plain(scene, o, d, cluster: int = CLUSTER, group: int = 
     return t, torch.where(torch.isfinite(t), best_id[:b], -1)
 
 
+def occluded_tri_cluster_plain(scene, o, d, t_cut, want_any: bool = False):
+    """The any-hit entry's plain version: ``t < t_cut`` and, when
+    ``want_any``, ``isfinite(t)`` of the twin's ``t`` (else None)."""
+    t, _ = closest_tri_cluster_plain(scene, o, d)
+    return t < t_cut, (torch.isfinite(t) if want_any else None)
+
+
 def closest_tri_cluster(scene, o, d):
     """Closest hit -> (t [B] f32, inf on a miss; tri_id [B] i64, -1 on a
     miss)."""
     if o.device.type == "cpu":
         return closest_tri_cluster_plain(scene, o, d)
-    check_rays(scene, o, d)
-    from pathtracer_tpu_torch import kernels
+    return launch_closest("pt_cluster_closest", "cluster closest-hit kernel", launches,
+                          scene, o, d)
 
-    table, bounds = kernel_table(scene)
-    b = o.shape[0]
-    t = torch.empty(b, dtype=torch.float32, device=o.device)
-    tri_id = torch.empty(b, dtype=torch.int64, device=o.device)
-    if b == 0:
-        return t, tri_id
-    lib = kernels.library()
-    with torch.cuda.device(o.device):
-        rc = lib.pt_cluster_closest(
-            o.data_ptr(), d.data_ptr(), table.data_ptr(), bounds.data_ptr(),
-            bounds.shape[0] - 1, b, t.data_ptr(), tri_id.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kernels.check(rc, "cluster closest-hit kernel")
-    launches["closest"] += 1
-    return t, tri_id
+
+def occluded_tri_cluster(scene, o, d, t_cut, want_any: bool = False):
+    """Shadow occlusion -> (occluded [B] bool: some triangle strictly before
+    ``t_cut``; hit_any [B] bool: some triangle at all, when ``want_any``,
+    else None)."""
+    if o.device.type == "cpu":
+        return occluded_tri_cluster_plain(scene, o, d, t_cut, want_any)
+    return launch_occluded("pt_cluster_occluded", "cluster any-hit kernel", launches, scene,
+                           o, d, t_cut, want_any)

@@ -8,7 +8,9 @@ when it enters the tile's box before its own best ``t`` (or cutoff), so the
 result is the brute sweep's, nearest ``t`` with the smallest id among equal
 ``t``, on scenes of any size. The any-hit entry answers "some triangle
 before the per-ray cutoff" and, when asked, "some triangle at all": exactly
-``t < t_cut`` and ``isfinite(t)`` of the closest entry.
+``t < t_cut`` and ``isfinite(t)`` of the closest entry. ``launch_closest``
+and ``launch_occluded`` call these entries, and the cluster kernel's
+(``ops.intersect_cluster``), which take the same arguments.
 
 Their plain versions are the brute sweeps ``intersect.closest_tri_brute`` and
 ``intersect._occluded_tri_brute``, which compute the same functions. The
@@ -24,17 +26,14 @@ import torch
 from pathtracer_tpu_torch.ops.intersect_shortlist_kernel import kernel_table
 from pathtracer_tpu_torch.ops.intersect_small import check_rays
 
-# Kernel launches by entry point; only the wrappers below add to it.
+# Kernel launches by entry point; only the launches below add to it.
 launches = {"closest": 0, "occluded": 0}
 
 
-def closest_tri_tiled(scene, o, d):
-    """Closest hit -> (t [B] f32, inf on a miss; tri_id [B] i64, -1 on a
-    miss)."""
-    if o.device.type == "cpu":
-        from pathtracer_tpu_torch.ops.intersect import closest_tri_brute
-
-        return closest_tri_brute(scene, o, d)
+def launch_closest(entry: str, what: str, counts: dict, scene, o, d):
+    """(t, tri_id) from the C entry ``entry`` on CUDA rays: the tiled and
+    cluster kernels' closest-hit entries, which take the same arguments. A
+    launch adds one to ``counts["closest"]``."""
     check_rays(scene, o, d)
     from pathtracer_tpu_torch import kernels
 
@@ -44,16 +43,49 @@ def closest_tri_tiled(scene, o, d):
     tri_id = torch.empty(b, dtype=torch.int64, device=o.device)
     if b == 0:
         return t, tri_id
-    lib = kernels.library()
     with torch.cuda.device(o.device):
-        rc = lib.pt_tiled_closest(
+        rc = getattr(kernels.library(), entry)(
             o.data_ptr(), d.data_ptr(), table.data_ptr(), bounds.data_ptr(),
             bounds.shape[0] - 1, b, t.data_ptr(), tri_id.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    kernels.check(rc, "tiled closest-hit kernel")
-    launches["closest"] += 1
+    kernels.check(rc, what)
+    counts["closest"] += 1
     return t, tri_id
+
+
+def launch_occluded(entry: str, what: str, counts: dict, scene, o, d, t_cut,
+                    want_any: bool):
+    """(occluded, hit_any or None) from the C any-hit entry ``entry`` on CUDA
+    rays, as ``launch_closest``; a launch adds one to ``counts["occluded"]``."""
+    check_rays(scene, o, d, t_cut)
+    from pathtracer_tpu_torch import kernels
+
+    table, bounds = kernel_table(scene)
+    b = o.shape[0]
+    occ = torch.empty(b, dtype=torch.uint8, device=o.device)
+    hit_any = torch.empty(b, dtype=torch.uint8, device=o.device) if want_any else None
+    if b > 0:
+        with torch.cuda.device(o.device):
+            rc = getattr(kernels.library(), entry)(
+                o.data_ptr(), d.data_ptr(), t_cut.data_ptr(), table.data_ptr(),
+                bounds.data_ptr(), bounds.shape[0] - 1, b, occ.data_ptr(),
+                hit_any.data_ptr() if want_any else None,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        kernels.check(rc, what)
+        counts["occluded"] += 1
+    return occ.bool(), (hit_any.bool() if want_any else None)
+
+
+def closest_tri_tiled(scene, o, d):
+    """Closest hit -> (t [B] f32, inf on a miss; tri_id [B] i64, -1 on a
+    miss)."""
+    if o.device.type == "cpu":
+        from pathtracer_tpu_torch.ops.intersect import closest_tri_brute
+
+        return closest_tri_brute(scene, o, d)
+    return launch_closest("pt_tiled_closest", "tiled closest-hit kernel", launches, scene, o, d)
 
 
 def occluded_tri_tiled(scene, o, d, t_cut, want_any: bool = False):
@@ -65,23 +97,5 @@ def occluded_tri_tiled(scene, o, d, t_cut, want_any: bool = False):
 
         occ, hit_any = _occluded_tri_brute(scene, o, d, t_cut)
         return occ, (hit_any if want_any else None)
-    check_rays(scene, o, d, t_cut)
-    from pathtracer_tpu_torch import kernels
-
-    table, bounds = kernel_table(scene)
-    b = o.shape[0]
-    occ = torch.empty(b, dtype=torch.uint8, device=o.device)
-    hit_any = torch.empty(b, dtype=torch.uint8, device=o.device) if want_any else None
-    if b == 0:
-        return occ.bool(), (hit_any.bool() if want_any else None)
-    lib = kernels.library()
-    with torch.cuda.device(o.device):
-        rc = lib.pt_tiled_occluded(
-            o.data_ptr(), d.data_ptr(), t_cut.data_ptr(), table.data_ptr(),
-            bounds.data_ptr(), bounds.shape[0] - 1, b, occ.data_ptr(),
-            hit_any.data_ptr() if want_any else None,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kernels.check(rc, "tiled any-hit kernel")
-    launches["occluded"] += 1
-    return occ.bool(), (hit_any.bool() if want_any else None)
+    return launch_occluded("pt_tiled_occluded", "tiled any-hit kernel", launches, scene, o, d,
+                           t_cut, want_any)

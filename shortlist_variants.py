@@ -60,6 +60,31 @@ def variants() -> dict:
     return out
 
 
+# Headers whose text a variant's edits may change: inlined into each
+# variant's source (ray_triangle.cuh stays an include, found by -I).
+INLINED = ("tile_walk.cuh",)
+
+
+def variant_sources(names_edits: dict, source: str, csrc: str) -> dict:
+    """name -> the text of ``<csrc>/<source>`` with INLINED headers inlined
+    and the variant's edits made, each of which must match once."""
+    with open(os.path.join(csrc, source)) as f:
+        src = f.read()
+    for header in INLINED:
+        include = f'#include "{header}"\n'
+        if include in src:
+            with open(os.path.join(csrc, header)) as f:
+                src = src.replace(include, f.read().replace("#pragma once\n", ""))
+    out = {}
+    for name, edits in names_edits.items():
+        text = src
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
 def build(names_edits: dict, source: str = SOURCE, csrc: str | None = None) -> dict:
     """Build every variant of ``<csrc>/<source>`` (``csrc`` the port's own by
     default); name -> (library path, ptxas's figures, one line per entry:
@@ -68,17 +93,11 @@ def build(names_edits: dict, source: str = SOURCE, csrc: str | None = None) -> d
     from pathtracer_tpu_torch import kernels
 
     csrc = csrc or kernels.CSRC
-    with open(os.path.join(csrc, source)) as f:
-        src = f.read()
     out_dir = os.path.join(kernels.BUILD_DIR, "variants", os.path.splitext(source)[0])
     os.makedirs(out_dir, exist_ok=True)
     nvcc = kernels._nvcc()
     procs = {}
-    for name, edits in names_edits.items():
-        text = src
-        for old, new in edits:
-            assert text.count(old) == 1, (name, old)
-            text = text.replace(old, new)
+    for name, text in variant_sources(names_edits, source, csrc).items():
         stem = os.path.join(out_dir, re.sub(r"[^A-Za-z0-9]+", "_", name))
         cu = f"{stem}.cu"
         with open(cu, "w") as f:

@@ -167,8 +167,8 @@ def test_shortlist_wrapper_refuses_what_the_kernel_cannot_take(cuda):
 
 
 # The band stand-in (1,152 padded triangles), the 2,276-triangle one (20
-# tiles) and the 65,572-triangle one (516 tiles: the tiled kernel walks them
-# in index order, with no cap).
+# tiles) and the 65,572-triangle one (516 tiles: the tiled and cluster kernels
+# walk them with no cap).
 ORACLE_MESHES = {"band": (30, 18), "torus2276": (40, 28), "torus65572": (256, 128)}
 
 
@@ -193,19 +193,24 @@ def test_tiled_and_cluster_kernels_equal_plain_and_brute_on_card(cuda, mesh, n):
     t_cut = torch.where(hit, t_b, 1.0) * torch.linspace(0.5, 1.5, n, device=cuda)
     t_cut[::7] = 0.0
     occ_b, any_b = tint._occluded_tri_brute(scene, o, d, t_cut)
-    for want_any in (False, True):
-        occ, hit_any = tiled.occluded_tri_tiled(scene, o, d, t_cut, want_any)
-        assert torch.equal(occ, occ_b)
-        assert torch.equal(hit_any, any_b) if want_any else hit_any is None
-    assert tiled.launches["closest"] == before[0]["closest"] + 1
-    assert tiled.launches["occluded"] == before[0]["occluded"] + 2
-    assert cluster.launches["closest"] == before[1]["closest"] + 1
+    occ_p, any_p = cluster.occluded_tri_cluster_plain(scene, o, d, t_cut, True)
+    for occluded, refs in ((tiled.occluded_tri_tiled, [(occ_b, any_b)]),
+                           (cluster.occluded_tri_cluster, [(occ_b, any_b), (occ_p, any_p)])):
+        for want_any in (False, True):
+            occ, hit_any = occluded(scene, o, d, t_cut, want_any)
+            for occ_r, any_r in refs:
+                assert torch.equal(occ, occ_r)
+                assert torch.equal(hit_any, any_r) if want_any else hit_any is None
+    for counts, was in zip((tiled.launches, cluster.launches), before):
+        assert counts == {"closest": was["closest"] + 1, "occluded": was["occluded"] + 2}
 
 
 ENTRIES = {
     "tiled": tiled.closest_tri_tiled,
     "tiled-occluded": lambda scene, o, d: tiled.occluded_tri_tiled(scene, o, d, o[:, 0], True),
     "cluster": cluster.closest_tri_cluster,
+    "cluster-occluded": lambda scene, o, d: cluster.occluded_tri_cluster(scene, o, d, o[:, 0],
+                                                                         True),
 }
 
 

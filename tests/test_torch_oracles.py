@@ -11,8 +11,8 @@ a ragged 700. Tolerances: against JAX, ``t`` within rtol 2e-5 (XLA's fused
 sweeps round differently from torch's one-rounding-per-operation kernels, as
 in test_torch_intersect.py) and ids equal on hit lanes; against the port's
 brute sweep, ``t`` and ids are equal (every version calls
-``intersect.mt_components``). The any-hit entry's flags equal ``t < t_cut``
-and ``isfinite(t)`` of JAX's kernel exactly. Renders as in test_torch_integrator.torch_parity,
+``intersect.mt_components``). The any-hit entries' flags equal ``t < t_cut``
+and ``isfinite(t)`` of JAX's kernels exactly. Renders as in test_torch_integrator.torch_parity,
 CLI PNGs as in test_torch_cli.
 """
 
@@ -68,7 +68,7 @@ def _one_torch_thread():
 
 def _no_launches():
     assert intersect_tiled.launches == {"closest": 0, "occluded": 0}
-    assert intersect_cluster.launches == {"closest": 0}
+    assert intersect_cluster.launches == {"closest": 0, "occluded": 0}
     assert intersect_shortlist_kernel.launches == {"closest": 0, "occluded": 0}
     assert intersect_small.launches == {"closest": 0, "occluded": 0}
 
@@ -128,22 +128,18 @@ def test_plain_version_matches_pallas_interpret_and_brute(scenes, rays, route,
     _no_launches()
 
 
-@pytest.mark.parametrize("want_any", [False, True])
-@pytest.mark.parametrize("scene_name", list(MESHES))
-def test_tiled_occluded_plain_version_matches_pallas_interpret(scenes, rays, scene_name,
-                                                               want_any):
-    """``occluded_tri_tiled`` on the CPU gives JAX's ``closest_tri_pallas``
-    turned into ``t < t_cut`` and ``isfinite(t)``, the flags occlusion took
-    from the closest-hit core on this route; every seventh cutoff is 0, as a
-    parked lane's."""
-    jscene, scene = scenes[scene_name]
+def _occluded_matches_jax_closest(occluded, jax_closest, jscene, scene, rays, want_any):
+    """``occluded`` on the CPU gives ``jax_closest``'s ``t`` (interpret mode)
+    turned into ``t < t_cut`` and ``isfinite(t)``, the flags JAX's occlusion
+    takes from its closest-hit core on these routes; cutoffs around the hit,
+    every seventh 0, as a parked lane's."""
     o, d, scale = rays
-    t_j, _ = closest_tri_pallas(jscene, jnp.asarray(o), jnp.asarray(d), interpret=True)
+    t_j, _ = jax_closest(jscene, jnp.asarray(o), jnp.asarray(d), interpret=True)
     t_j = np.asarray(t_j)
     t_cut = np.where(np.isfinite(t_j), t_j, 1.0).astype(np.float32) * scale
     t_cut[::7] = 0.0
-    occ, hit_any = intersect_tiled.occluded_tri_tiled(
-        scene, torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(t_cut), want_any)
+    occ, hit_any = occluded(scene, torch.as_tensor(o), torch.as_tensor(d),
+                            torch.as_tensor(t_cut), want_any)
     np.testing.assert_array_equal(occ.numpy(), t_j < t_cut)
     assert 0 < occ.sum() < N_RAYS
     if want_any:
@@ -151,6 +147,23 @@ def test_tiled_occluded_plain_version_matches_pallas_interpret(scenes, rays, sce
     else:
         assert hit_any is None
     _no_launches()
+
+
+@pytest.mark.parametrize("want_any", [False, True])
+@pytest.mark.parametrize("scene_name", list(MESHES))
+def test_tiled_occluded_plain_version_matches_pallas_interpret(scenes, rays, scene_name,
+                                                               want_any):
+    _occluded_matches_jax_closest(intersect_tiled.occluded_tri_tiled, closest_tri_pallas,
+                                  *scenes[scene_name], rays, want_any)
+
+
+@pytest.mark.parametrize("want_any", [False, True])
+@pytest.mark.parametrize("scene_name", list(MESHES))
+def test_cluster_occluded_plain_version_matches_jax_cluster_interpret(scenes, rays,
+                                                                      scene_name, want_any):
+    _occluded_matches_jax_closest(intersect_cluster.occluded_tri_cluster,
+                                  jcluster.closest_tri_cluster, *scenes[scene_name], rays,
+                                  want_any)
 
 
 @pytest.mark.parametrize("cluster,group", [(128, 128), (512, 1024), (32, 64)])
@@ -230,10 +243,9 @@ def test_closest_hit_and_occlusion_match_jax_brute(scenes, rays, route, kw):
     """``closest_hit`` indexes the winner's normal, material and vertex
     normals; ``occluded_before`` answers occlusion (``t < t_cut``) and
     ``hit_any`` (``isfinite(t)``) as JAX's closest-hit core does on these
-    routes: the cluster route from its closest-hit core, the tiled one from
-    its any-hit entry, which computes ``hit_any`` only under direct lighting
-    (the only consumer) and returns ``occluded`` in its place otherwise.
-    Records equal JAX's brute ones."""
+    routes, each from its any-hit entry, which computes ``hit_any`` only
+    under direct lighting (the only consumer) and returns ``occluded`` in its
+    place otherwise. Records equal JAX's brute ones."""
     jscene, scene = scenes["band1152"]
     o, d, scale = rays
     st, jst = RenderSettings(intersector=route, **kw), JaxSettings(intersector="brute", **kw)
@@ -254,7 +266,7 @@ def test_closest_hit_and_occlusion_match_jax_brute(scenes, rays, route, kw):
     jocc, jany = jint.occluded_before(jscene, jo, jd, jnp.asarray(t_max.numpy()), jst)
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
     assert 0 < occ.sum() < N_RAYS
-    if st.direct_lighting_only or route == "cluster":
+    if st.direct_lighting_only:
         np.testing.assert_array_equal(hit_any.numpy(), h)
     else:
         np.testing.assert_array_equal(hit_any.numpy(), occ.numpy())
@@ -263,31 +275,45 @@ def test_closest_hit_and_occlusion_match_jax_brute(scenes, rays, route, kw):
     _no_launches()
 
 
-@pytest.mark.parametrize("dlo", [False, True])
-def test_occluded_before_takes_the_tiled_any_hit_entry(scenes, rays, monkeypatch, dlo):
-    """On the ``pallas`` route ``occluded_before`` calls
-    ``occluded_tri_tiled`` once, with ``want_any`` set by direct lighting,
-    and returns its flags; the cluster route does not call it."""
+def _takes_its_any_hit_entry(scenes, rays, monkeypatch, route, other, dlo):
+    """On ``route`` ``occluded_before`` calls that route's any-hit entry once,
+    with ``want_any`` set by direct lighting, and returns its flags; on
+    ``other`` it calls ``other``'s entry, not ``route``'s."""
     _, scene = scenes["band1152"]
     o, d, scale = (torch.as_tensor(x) for x in rays)
-    assert tint._OCCLUDED_ANY["pallas"] is intersect_tiled.occluded_tri_tiled
     calls = []
 
-    def stand_in(scene_, o_, d_, t_cut, want_any=False):
-        calls.append(want_any)
-        occ = torch.arange(o_.shape[0]) % 3 == 0
-        return occ, (torch.arange(o_.shape[0]) % 2 == 0 if want_any else None)
+    def stand_in(name):
+        def entry(scene_, o_, d_, t_cut, want_any=False):
+            calls.append((name, want_any))
+            occ = torch.arange(o_.shape[0]) % 3 == 0
+            return occ, (torch.arange(o_.shape[0]) % 2 == 0 if want_any else None)
 
-    monkeypatch.setitem(tint._OCCLUDED_ANY, "pallas", stand_in)
-    st = RenderSettings(intersector="pallas", direct_lighting_only=dlo)
+        return entry
+
+    for r in (route, other):
+        monkeypatch.setitem(tint._OCCLUDED_ANY, r, stand_in(r))
+    st = RenderSettings(intersector=route, direct_lighting_only=dlo)
     occ, hit_any = tint.occluded_before(scene, o, d, scale, st)
-    assert calls == [dlo]
+    assert calls == [(route, dlo)]
     assert torch.equal(occ, torch.arange(N_RAYS) % 3 == 0)
     assert torch.equal(hit_any, torch.arange(N_RAYS) % (2 if dlo else 3) == 0)
-    tint.occluded_before(scene, o, d, scale, RenderSettings(intersector="cluster",
+    tint.occluded_before(scene, o, d, scale, RenderSettings(intersector=other,
                                                             direct_lighting_only=dlo))
-    assert calls == [dlo]
+    assert calls == [(route, dlo), (other, dlo)]
     _no_launches()
+
+
+@pytest.mark.parametrize("dlo", [False, True])
+def test_occluded_before_takes_the_tiled_any_hit_entry(scenes, rays, monkeypatch, dlo):
+    assert tint._OCCLUDED_ANY["pallas"] is intersect_tiled.occluded_tri_tiled
+    _takes_its_any_hit_entry(scenes, rays, monkeypatch, "pallas", "cluster", dlo)
+
+
+@pytest.mark.parametrize("dlo", [False, True])
+def test_occluded_before_takes_the_cluster_any_hit_entry(scenes, rays, monkeypatch, dlo):
+    assert tint._OCCLUDED_ANY["cluster"] is intersect_cluster.occluded_tri_cluster
+    _takes_its_any_hit_entry(scenes, rays, monkeypatch, "cluster", "pallas", dlo)
 
 
 @pytest.mark.parametrize("scheduler", ["regen", "scan"])
@@ -355,6 +381,8 @@ ENTRIES = {
     "pallas-occluded": lambda scene, o, d: intersect_tiled.occluded_tri_tiled(
         scene, o, d, o[:, 0], True),
     "cluster": intersect_cluster.closest_tri_cluster,
+    "cluster-occluded": lambda scene, o, d: intersect_cluster.occluded_tri_cluster(
+        scene, o, d, o[:, 0], True),
 }
 
 

@@ -58,15 +58,14 @@ STAGED = [
      "  for (int i = threadIdx.x; i < c * kTile * kRow4; i += kThreads) staged[i] = table4[i];\n"
      "  __syncthreads();\n"
      "  table4 = staged;\n"),
-    ("template <bool kAnyHit>\nint launch(",
-     "template <bool kAnyHit>\nint stage(int c) {\n"
+    ("inline int launch_walk(",
+     "inline int stage(WalkKernel kernel, int c) {\n"
      "  const int smem = c * kTile * kCols * static_cast<int>(sizeof(float));\n"
-     "  cudaFuncSetAttribute(tiled_kernel<kAnyHit>,\n"
-     "                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n"
+     "  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n"
      "  return smem;\n}\n\n"
-     "template <bool kAnyHit>\nint launch("),
-    ("<<<grid, kThreads, 0, ", "<<<grid, kThreads, stage<kAnyHit>(c), "),
-    ("tiled_kernel<kAnyHit>, kThreads, 0);", "tiled_kernel<kAnyHit>, kThreads, stage<kAnyHit>(c));"),
+     "inline int launch_walk("),
+    ("<<<grid, kThreads, 0, ", "<<<grid, kThreads, stage(kernel, c), "),
+    ("&blocks, kernel, kThreads, 0);", "&blocks, kernel, kThreads, stage(kernel, c));"),
 ]
 THREADS = "constexpr int kThreads = 128;"
 DENSE = "constexpr int kDenseLanes = 28;"
