@@ -87,6 +87,35 @@ non-zero):
                 with --intersector pallas and with --intersector cluster; each
                 launches its kernel.
 
+13. threefry  -- the threefry generator: keys, jitter and 7 bounce uniforms
+                (per-lane depths 0-16 and a scalar depth) on 262,144 lanes
+                with seeds 0 and 7, bit-equal to the CPU port's; one bounce's
+                uniform draw at 262,144 lanes, threefry beside hash (device ms
+                of a CUDA graph, and back-to-back calls by events); the
+                Cornell headline's shape (512^2, spp 16, depth 17, regen,
+                2^18 lanes) with rng="threefry" through "auto" (the small
+                kernel launched) and "brute": equal rays traced, image MSE <=
+                1e-6; beside the hash "auto" render: tonemapped MSE and image
+                means of the two streams within STREAMS_*; walls and rays/s.
+14. bvh      -- the BVH oracle (intersector="bvh", torch ops) against brute on
+                the Cornell box, the band stand-in and the 12,580-triangle
+                torus stand-in, on phase 10's 262,144 rays and on 262,143: hit
+                masks equal, t within BVH_RTOL / BVH_ATOL (and its ULP
+                distance printed), ids equal but on tied lanes (counted); ms
+                per call and loop iterations beside the tiled and shortlist
+                kernels' times on the same rays; the band stand-in at 128^2,
+                spp 4 through "bvh" and "brute": equal rays, image MSE <=
+                1e-6, no kernel launched; walls.
+15. cli-extras -- Cornell files at 128^2, spp 8: a render cut after its first
+                chunk through render_checkpointed and resumed by the CLI's
+                --checkpoint writes the straight CLI render's PNG (up to one
+                8-bit step on at most 0.1% of the values: summation order);
+                --preview-png 2 writes the three preview files; a --serve 0
+                run exits 0; a PreviewServer on a free port answers /status
+                and /latest.png (read by read_png); profiling.trace around a
+                render writes a Chrome trace with the small kernel in it, and
+                profiling.timed gives a positive wall.
+
 ``--band-pairs N`` adds N rounds of phase 11's renders with "pallas",
 "pallas" with the pool's ray sort on, "cluster", "shortlist_pallas" and
 "brute", in turn forward and backward order, and prints each route's median
@@ -112,6 +141,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -567,21 +597,21 @@ def stand_in_scenes(dev):
     return out
 
 
-def tie_report(scene, o, d, got, ref, lanes) -> str:
-    """For lanes whose ids differ: how many of the two triangles' t tie."""
-    from pathtracer_tpu_torch.ops.intersect import moller_trumbore
+def tied_lanes(scene, o, d, tri, t_ref, id_ref):
+    """Lanes whose id differs from the reference's -> (their count, how many
+    of them tie: the other triangle's t equals the reference's)."""
+    from pathtracer_tpu_torch.ops.intersect import mt_components
 
-    def t_of(ids):
-        ts = []
-        for lane, tri in zip(lanes.tolist(), ids[lanes].tolist()):
-            s = slice(tri, tri + 1)
-            t, _ = moller_trumbore(o[lane : lane + 1], d[lane : lane + 1], scene.tri_v0[s],
-                                   scene.tri_e1[s], scene.tri_e2[s], scene.tri_valid[s])
-            ts.append(t.item())
-        return ts
-
-    ties = sum(a == b for a, b in zip(t_of(got), t_of(ref)))
-    return f"{lanes.numel()} lanes differ, {ties} of them at tied t"
+    lanes = torch.nonzero((tri != id_ref) & torch.isfinite(t_ref)).squeeze(1)
+    if lanes.numel() == 0:
+        return 0, 0
+    win = tri[lanes].clamp(min=0)
+    oo, dd = o[lanes], d[lanes]
+    v0, e1, e2 = scene.tri_v0[win], scene.tri_e1[win], scene.tri_e2[win]
+    t, _ = mt_components(*(oo[:, i] for i in range(3)), *(dd[:, i] for i in range(3)),
+                         *(v0[:, i] for i in range(3)), *(e1[:, i] for i in range(3)),
+                         *(e2[:, i] for i in range(3)), tri[lanes] >= 0)
+    return lanes.numel(), int((t == t_ref[lanes]).sum())
 
 
 def assert_same_hits(label, scene, o, d, t, tri, ref_name, ref) -> None:
@@ -591,9 +621,10 @@ def assert_same_hits(label, scene, o, d, t, tri, ref_name, ref) -> None:
     ulp = ulp_distance(t, t_r)
     assert ulp == 0, f"{label}: t differs from {ref_name} by {ulp} ULP"
     hit = torch.isfinite(t_r)
-    lanes = torch.nonzero((tri != id_r) & hit).squeeze(1)
-    assert lanes.numel() == 0, (
-        f"{label}: tri_id differs from {ref_name}: " + tie_report(scene, o, d, tri, id_r, lanes))
+    differ, ties = tied_lanes(scene, o, d, tri, t_r, id_r)
+    assert differ == 0, (
+        f"{label}: tri_id differs from {ref_name}: {differ} lanes differ, {ties} of them at "
+        "tied t")
     assert bool((tri[~hit] == -1).all()), f"{label}: a miss lane's id is not -1"
 
 
@@ -1173,6 +1204,252 @@ def phase_cli_oracles(dev):
                 f"{counted[FAMILY[route]]}")
 
 
+THREEFRY_SEEDS = (0, 7)
+# Phase 13's render: the Cornell headline's shape.
+THREEFRY_RENDER = dict(width=512, height=512, samples_per_pixel=16, max_depth=17,
+                       rr_prob=0.9, scheduler="regen", batch_size=1 << 18)
+# Threefry and hash are two streams of one estimator: at 512^2 spp 16 their
+# Cornell images differ by noise. Bounds: tonemapped MSE (the two CPU ports
+# at 64^2 spp 16 read 0.0043) and the relative difference of the image means
+# (0.29% there, with 64 times fewer paths).
+STREAMS_TONEMAPPED_MSE = 0.01
+STREAMS_MEAN_REL = 0.01
+# Phase 14: the BVH oracle's t against brute's, as tests/test_torch_bvh.py.
+BVH_RTOL, BVH_ATOL = 1e-5, 1e-6
+BVH_RENDER_SIZE = 128
+# Phase 15's CLI renders.
+EXTRAS_SIZE, EXTRAS_SPP = 128, 8
+
+
+def rng_inputs(dev, seed: int):
+    """Phase 13's lanes: u32 pixel and sample ids and per-lane depths 0-16,
+    made with numpy from ``seed``."""
+    g = np.random.default_rng(100 + seed)
+    ids = [g.integers(0, 1 << 32, N_RAYS, dtype=np.uint64).astype(np.int64)
+           for _ in range(2)]
+    depth = g.integers(0, 17, N_RAYS).astype(np.int64)
+    return tuple(torch.as_tensor(a, device=dev) for a in (*ids, depth))
+
+
+def threefry_draws(pix, smp, depth, seed):
+    """Phase 13's draws: jitter, and 7 bounce uniforms at the per-lane depths
+    and at a scalar depth."""
+    from pathtracer_tpu_torch.ops import rng
+
+    keys = rng.ray_keys(rng.prng_key(seed), pix, smp)
+    return {"keys": keys, "jitter": rng.pixel_jitter_threefry(keys),
+            "per-lane depth": rng.bounce_uniforms_threefry(keys, depth, 7),
+            "scalar depth": rng.bounce_uniforms_threefry(keys, 3, 7)}
+
+
+def phase_threefry(dev):
+    from pathtracer_tpu_torch.models.procedural import cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.ops import intersect_small as small
+    from pathtracer_tpu_torch.ops import rng
+    from pathtracer_tpu_torch.ops.tonemap import tonemap_reference
+    from pathtracer_tpu_torch.ops.wavefront import render_regenerative_stats
+
+    for seed in THREEFRY_SEEDS:
+        card = rng_inputs(dev, seed)
+        got = threefry_draws(*card, seed)
+        want = threefry_draws(*(x.cpu() for x in card), seed)
+        for name, x in got.items():
+            assert torch.equal(x.cpu(), want[name]), f"seed {seed}: threefry {name} differs"
+        log("threefry", f"seed {seed}, {N_RAYS} lanes: keys, jitter and bounce uniforms "
+            "(per-lane depths 0-16 and a scalar depth) bit-equal to the CPU port's")
+    pix, smp, depth = rng_inputs(dev, 0)
+    draw = {}
+    for gen in ("hash", "threefry"):
+        st = RenderSettings(rng=gen)
+        draw[gen] = (graph_ms(lambda: rng.bounce_uniforms(st, pix, smp, depth, 7), n=10),
+                     event_ms(lambda: rng.bounce_uniforms(st, pix, smp, depth, 7)))
+    log("threefry", f"one bounce's uniform draw (7 per lane, per-lane depths) at {N_RAYS} "
+        f"lanes: threefry {draw['threefry'][0]:.4f} ms vs hash {draw['hash'][0]:.4f} ms on "
+        f"the device (a CUDA graph of 10 calls); back-to-back calls by events threefry "
+        f"{draw['threefry'][1]:.4f} ms, hash {draw['hash'][1]:.4f} ms")
+
+    scene, camera = cornell_box_scene(device=dev)
+    base = THREEFRY_RENDER
+    size = base["width"]
+    paths = size * size * base["samples_per_pixel"]
+    results = {}
+    for label, kw in (("threefry auto", dict(rng="threefry")),
+                      ("threefry brute", dict(rng="threefry", intersector="brute")),
+                      ("hash auto", {})):
+        st = RenderSettings(**base, **kw)
+        render_regenerative_stats(scene, camera, st)  # warm-up
+        reset_launches()
+        (img, n, iters), wall = sync_time(lambda: render_regenerative_stats(scene, camera, st))
+        counted = dict(small.launches)
+        kernel = "brute" not in label
+        assert all((v > 0) == kernel for v in counted.values()), (label, counted)
+        assert torch.isfinite(img).all(), f"{label}: non-finite image"
+        results[label] = (img, int(n), iters, wall)
+        log("threefry", f"{label}: {size}^2 spp {base['samples_per_pixel']}: {wall:.4f} s, {int(n) / wall / 1e6:.2f} "
+            f"Mray/s, {paths / wall / 1e6:.2f} Mpaths/s, rays traced {int(n)}, pool "
+            f"iterations {iters}, small kernel launches {counted}")
+    (img_k, n_k, *_), (img_b, n_b, *_) = results["threefry auto"], results["threefry brute"]
+    assert n_k == n_b, f"threefry rays traced: kernel {n_k} vs brute {n_b}"
+    err = torch.mean((img_k - img_b) ** 2).item()
+    assert err <= 1e-6, f"threefry image MSE kernel vs brute {err}"
+    img_h, n_h = results["hash auto"][:2]
+    streams = torch.mean((tonemap_reference(img_k) - tonemap_reference(img_h)) ** 2).item()
+    rel = abs(img_k.mean().item() - img_h.mean().item()) / img_h.mean().item()
+    assert streams <= STREAMS_TONEMAPPED_MSE, f"threefry vs hash tonemapped MSE {streams}"
+    assert rel <= STREAMS_MEAN_REL, f"threefry vs hash image means differ by {rel:.4f}"
+    log("threefry", f"threefry: equal rays traced through the kernel and brute ({n_k}), "
+        f"image MSE {err:.3e}; threefry vs hash (two streams): tonemapped MSE "
+        f"{streams:.5f} (bound {STREAMS_TONEMAPPED_MSE}), image means differ by {rel:.5f} "
+        f"(bound {STREAMS_MEAN_REL}), rays traced {n_k} vs {n_h}")
+
+
+def phase_bvh(dev):
+    from pathtracer_tpu_torch.models.procedural import cornell_box_camera
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.ops import intersect as tint
+    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as sk
+    from pathtracer_tpu_torch.ops import intersect_tiled as it
+    from pathtracer_tpu_torch.ops.bvh_traverse import closest_tri_bvh_stats
+    from pathtracer_tpu_torch.ops.wavefront import render_regenerative_stats
+
+    o, d, _ = smoke_rays(dev)
+    scenes = [smoke_scenes(dev)[0], ("band1152", band_scene(dev)), stand_in_scenes(dev)[0]]
+    for name, scene in scenes:
+        for n in (N_RAYS, N_RAYS - 1):
+            oo, dd = o[:n], d[:n]
+            t, tri, iters = closest_tri_bvh_stats(scene, oo, dd)
+            t_b, id_b = tint.closest_tri_brute(scene, oo, dd)
+            torch.cuda.synchronize()
+            hit = torch.isfinite(t_b)
+            assert torch.equal(torch.isfinite(t), hit), f"bvh {name} n={n}: hit masks differ"
+            assert torch.allclose(t[hit], t_b[hit], rtol=BVH_RTOL, atol=BVH_ATOL), (
+                f"bvh {name} n={n}: t differs from brute's")
+            differ, ties = tied_lanes(scene, oo, dd, tri, t_b, id_b)
+            assert differ == ties, f"bvh {name} n={n}: {differ - ties} ids differ off a tie"
+            log("bvh", f"{name} T={scene.num_tris} rays={n} hits={int(hit.sum())}: hit masks "
+                f"equal to brute's, t {ulp_distance(t, t_b)} ULP from brute's (within rtol "
+                f"{BVH_RTOL} / atol {BVH_ATOL}), ids equal but on {ties} tied lanes; "
+                f"{iters} loop iterations (the worst lane's node pops)")
+        (_, _, iters), wall = sync_time(lambda: closest_tri_bvh_stats(scene, o, d))
+        ms = {"bvh": wall * 1e3, "tiled": event_ms(lambda: it.closest_tri_tiled(scene, o, d))}
+        if scene.padded_tris >= tint.SHORTLIST_MIN_T:
+            ms["shortlist"] = event_ms(lambda: sk.closest_tri_shortlist_kernel(scene, o, d))
+        log("bvh", f"{name} at {N_RAYS} rays, closest hit: bvh oracle {ms['bvh']:.2f} ms a "
+            f"call (host clock, one call) in {iters} iterations, against "
+            + ", ".join(f"the {k} kernel {v:.4f} ms" for k, v in ms.items() if k != "bvh"))
+
+    scene, camera = band_scene(dev), cornell_box_camera()
+    out = {}
+    for route in ("bvh", "brute"):
+        st = RenderSettings(width=BVH_RENDER_SIZE, height=BVH_RENDER_SIZE, samples_per_pixel=4,
+                            max_depth=17, rr_prob=0.9, intersector=route)
+        reset_launches()
+        (img, n, iters), wall = sync_time(lambda: render_regenerative_stats(scene, camera, st))
+        moved = {f: c for f, c in launch_counts().items() if any(c.values())}
+        assert not moved, f"{route}: a kernel was launched: {moved}"
+        assert torch.isfinite(img).all() and img.mean().item() > 0.01, route
+        out[route] = (img, int(n), wall)
+        log("bvh", f"band stand-in {BVH_RENDER_SIZE}^2 spp 4 through {route}: {wall:.4f} s, "
+            f"rays traced {int(n)}, pool iterations {iters}, no kernel launched")
+    (img_v, n_v, _), (img_b, n_b, _) = out["bvh"], out["brute"]
+    assert n_v == n_b, f"rays traced: bvh {n_v} vs brute {n_b}"
+    err = torch.mean((img_v - img_b) ** 2).item()
+    assert err <= 1e-6, f"image MSE bvh vs brute {err}"
+    log("bvh", f"band render: equal rays traced ({n_v}), image MSE bvh vs brute {err:.3e}")
+
+
+class _Cut(Exception):
+    """Raised by phase 15's progress callback to cut a render."""
+
+
+def phase_cli_extras(dev):
+    from pathtracer_tpu_torch import cli
+    from pathtracer_tpu_torch.models.procedural import write_cornell_box_files
+    from pathtracer_tpu_torch.models.scene import load_scene
+    from pathtracer_tpu_torch.render import render_checkpointed, render_stats
+    from pathtracer_tpu_torch.utils import profiling
+    from pathtracer_tpu_torch.utils.checkpoint import load_render_state, render_fingerprint
+    from pathtracer_tpu_torch.utils.image import read_png
+    from pathtracer_tpu_torch.utils.preview_server import PreviewServer
+
+    size, spp = EXTRAS_SIZE, EXTRAS_SPP
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = write_cornell_box_files(tmp)
+        common = [ini, "--size", str(size), "--spp", str(spp), "--device", str(dev)]
+
+        def run(name, *extra):
+            png = os.path.join(tmp, name)
+            rc = cli.main([*common, "--out", png, *extra])
+            assert rc == 0, f"cli {extra} returned {rc}"
+            img = read_png(png)
+            assert img.shape == (size, size, 3) and img.mean() > 0.01, (extra, img.mean())
+            return img
+
+        ckpt = os.path.join(tmp, "state.npz")
+        scene, camera, settings, _ = load_scene(ini, device=dev, width=size, height=size,
+                                                samples_per_pixel=spp)
+
+        def cut(done, total):
+            raise _Cut
+
+        try:
+            render_checkpointed(scene, camera, settings, ckpt, chunk_samples=spp // 2,
+                                progress_callback=cut)
+        except _Cut:
+            pass
+        fp = render_fingerprint(scene, settings)
+        assert load_render_state(ckpt, fp)[1] == spp // 2, "the cut state was not saved"
+        resumed = run("resumed.png", "--checkpoint", ckpt)
+        assert load_render_state(ckpt, fp)[1] == spp, "the CLI did not resume the state"
+        straight = run("straight.png")
+        steps = np.abs(np.rint(resumed * 255) - np.rint(straight * 255))
+        assert steps.max() <= 1 and (steps > 0).mean() <= 1e-3, (steps.max(), (steps > 0).mean())
+        log("cli-extras", f"--checkpoint: a {size}^2 spp {spp} render cut after its first "
+            f"chunk ({spp // 2} samples) and resumed by the CLI: its PNG equals the straight "
+            f"CLI render's on {(steps == 0).mean():.6f} of the values, the rest one 8-bit "
+            "step apart (summation order)")
+
+        run("p.png", "--preview-png", "2")
+        previews = sorted(f for f in os.listdir(tmp) if f.startswith("p.preview_"))
+        assert previews == [f"p.preview_{k:04d}.png" for k in (2, 4, 6)], previews
+        for f in previews:
+            assert read_png(os.path.join(tmp, f)).shape == (size, size, 3), f
+        run("served.png", "--serve", "0")
+        log("cli-extras", f"--preview-png 2 wrote {previews}; a --serve 0 run exited 0")
+
+        srv = PreviewServer(port=0)
+        try:
+            srv.update(np.rint(straight * 255).astype(np.uint8), 3, spp)
+            base = f"http://127.0.0.1:{srv.port}"
+            status = json.loads(urllib.request.urlopen(f"{base}/status", timeout=10).read())
+            png = urllib.request.urlopen(f"{base}/latest.png", timeout=10).read()
+        finally:
+            srv.close()
+        assert status == {"spp_done": 3, "spp_total": spp, "width": size, "height": size,
+                          "done": False}, status
+        served = os.path.join(tmp, "latest.png")
+        with open(served, "wb") as f:
+            f.write(png)
+        assert read_png(served).shape == (size, size, 3)
+        log("cli-extras", f"PreviewServer on port {srv.port}: /status {status}, /latest.png "
+            f"a {len(png)}-byte PNG that read_png reads")
+
+        result, logdir = {}, os.path.join(tmp, "trace")
+        with profiling.trace(logdir):
+            with profiling.timed(result):
+                img, n_rays = render_stats(scene, camera, settings)
+                result["block_on"] = img
+        trace_file = os.path.join(logdir, "trace.json")
+        with open(trace_file) as f:
+            events = json.load(f)["traceEvents"]
+        assert any("small_kernel" in e.get("name", "") for e in events), "no kernel traced"
+        assert result["wall_s"] > 0.0
+        stats = profiling.RenderStats(result["wall_s"], float(n_rays), float(size * size * spp))
+        log("cli-extras", f"profiling.trace wrote {os.path.getsize(trace_file)} bytes "
+            f"({len(events)} events, the small kernel among them); profiling.timed: {stats}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     p.add_argument("--band-pairs", type=int, default=0, metavar="N",
@@ -1212,6 +1489,9 @@ def main(argv=None) -> int:
     or_ms = phase_oracles(dev)
     band_launches = phase_band(dev, args.band_pairs)
     phase_cli_oracles(dev)
+    phase_threefry(dev)
+    phase_bvh(dev)
+    phase_cli_extras(dev)
 
     or_ms, or_err, or_bound = or_ms["band1152"]
     rows = []

@@ -6,7 +6,10 @@ Port of ``pathtracer_tpu/cli.py``:
         --scene-root /path/to/reference --out out.png
 
 The INI's ``output`` path is written when ``--out`` is not given. ``--device``
-picks the torch device (default ``cuda``).
+picks the torch device (default ``cuda``). ``--checkpoint PATH`` renders in
+resumable chunks (``render.render_checkpointed``), ``--preview-png N`` writes
+``<out>.preview_NNNN.png`` every N samples, and ``--serve PORT`` serves the
+accumulating image over localhost HTTP (``utils.preview_server``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def main(argv=None) -> int:
         "brute sweep. pallas = the CUDA tiled "
         "sweep (csrc/intersect_tiled.cu), cluster = the CUDA cluster cull "
         "(csrc/intersect_cluster.cu); on the CPU both run their plain torch "
-        "versions. bvh is not ported yet and raises",
+        "versions. bvh = the BVH walk in torch ops (an oracle, on any device)",
     )
     p.add_argument(
         "--seed", type=int, default=0,
@@ -49,6 +52,21 @@ def main(argv=None) -> int:
         "--scheduler", default="regen", choices=("regen", "scan"),
         help="regen = regenerative wavefront pool; scan = fixed-depth wave "
         "per sample",
+    )
+    p.add_argument(
+        "--checkpoint", default=None,
+        help="path for resumable accumulation state (.npz)",
+    )
+    p.add_argument(
+        "--preview-png", type=int, default=0, metavar="N",
+        help="write the tonemapped partial image every N samples "
+        "(<out>.preview_NNNN.png)",
+    )
+    p.add_argument(
+        "--serve", type=int, default=None, metavar="PORT",
+        help="serve a live auto-refreshing preview of the accumulating "
+        "render at http://127.0.0.1:PORT/ while rendering (0: a free port, "
+        "printed)",
     )
     p.add_argument(
         "--light-sampling",
@@ -75,8 +93,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from pathtracer_tpu_torch.models.scene import load_scene
-    from pathtracer_tpu_torch.render import render_image
-    from pathtracer_tpu_torch.utils.image import write_png
+    from pathtracer_tpu_torch.ops.tonemap import TONEMAPS
+    from pathtracer_tpu_torch.render import render_checkpointed, render_image
+    from pathtracer_tpu_torch.utils.image import to_uint8, write_png
 
     overrides = dict(
         intersector=args.intersector,
@@ -116,10 +135,37 @@ def main(argv=None) -> int:
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
 
+    server = None
+    if args.serve is not None:
+        from pathtracer_tpu_torch.utils.preview_server import PreviewServer
+
+        server = PreviewServer(port=args.serve)
+        print(f"live preview: http://127.0.0.1:{server.port}/", file=sys.stderr)
+
+    def preview(done_spp, mean):
+        img = TONEMAPS[args.tonemap](mean).cpu().numpy()
+        if args.preview_png:
+            stem, ext = os.path.splitext(out)
+            path = f"{stem}.preview_{done_spp:04d}{ext or '.png'}"
+            write_png(path, img)
+            print(f"  preview {done_spp} spp -> {path}", file=sys.stderr)
+        if server is not None:
+            server.update(to_uint8(img), done_spp, settings.samples_per_pixel)
+
     t0 = time.perf_counter()
-    img = render_image(
-        scene, camera, settings, tonemap=args.tonemap, progress_callback=progress
-    )
+    if args.checkpoint:
+        mean = render_checkpointed(
+            scene, camera, settings, args.checkpoint, progress_callback=progress
+        )
+        img = TONEMAPS[args.tonemap](mean).cpu().numpy()
+    else:
+        preview_every = args.preview_png or (1 if server is not None else 0)
+        img = render_image(
+            scene, camera, settings, tonemap=args.tonemap,
+            progress_callback=progress,
+            preview_every=preview_every,
+            preview_fn=preview if preview_every else None,
+        )
     dt = time.perf_counter() - t0
 
     n_rays = settings.width * settings.height * settings.samples_per_pixel
@@ -127,6 +173,12 @@ def main(argv=None) -> int:
 
     write_png(out, img)
     print(f"wrote {out}")
+    if server is not None:
+        server.update(
+            to_uint8(img), settings.samples_per_pixel,
+            settings.samples_per_pixel, done=True,
+        )
+        server.close()
     return 0
 
 

@@ -120,8 +120,8 @@ class RenderSettings:
     # "auto" | "brute" | "small_pallas" (here: the CUDA small-scene kernel) |
     # "shortlist" (the block shortlist's torch twin) | "shortlist_pallas"
     # (here: the CUDA shortlist kernel) | "pallas" (here: the CUDA tiled
-    # sweep) | "cluster" (the CUDA cluster cull); "bvh" raises
-    # NotImplementedError (ops.intersect).
+    # sweep) | "cluster" (the CUDA cluster cull) | "bvh" (the BVH walk in
+    # torch ops, ops.bvh_traverse; an oracle).
     intersector: str = "auto"
     # NEE shadow rays: "fast" (occlusion sweep) | "closest" (full closest hit)
     shadow_mode: str = "fast"
@@ -129,7 +129,8 @@ class RenderSettings:
     glossy_brdf: str = "phong"
     # Beckmann roughness; 0 derives alpha = sqrt(2 / (Ns + 2)) per material
     beckmann_alpha: float = 0.0
-    # RNG: "hash" ("threefry" is not ported yet and raises)
+    # RNG: "hash" | "threefry" (JAX's threefry bits, the hash generator's
+    # oracle; ops.rng)
     rng: str = "hash"
     # RNG stream seed (0 = the goldens' stream).
     seed: int = 0

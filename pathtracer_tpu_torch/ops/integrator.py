@@ -133,14 +133,6 @@ def _nee(scene, settings, hit, mat, d, beta, u, active):
     return contrib * scale, shadow_any
 
 
-def _uniforms(settings, pixel_ids, sample_ids, depth, n):
-    """[B, n] per-bounce uniforms from the hash generator (ops.rng)."""
-    rng.check_rng(settings)
-    return rng.bounce_uniforms_hash(
-        pixel_ids, sample_ids, depth, n, seed=settings.seed
-    )
-
-
 def bounce_core(scene, settings, o, d, beta, radiance, alive, spec,
                 pixel_ids, sample_ids, depth):
     """One masked wavefront bounce over [B] lanes.
@@ -155,7 +147,7 @@ def bounce_core(scene, settings, o, d, beta, radiance, alive, spec,
         n_uniforms = rng.BSDF_DIR + 2
     else:
         n_uniforms = rng.STRIDE + 3 * (settings.num_direct_lighting_samples - 1)
-    u = _uniforms(settings, pixel_ids, sample_ids, depth, n_uniforms)
+    u = rng.bounce_uniforms(settings, pixel_ids, sample_ids, depth, n_uniforms)
 
     # Live closest-hit rays this bounce (shadow rays counted below).
     n_rays = torch.sum(alive)

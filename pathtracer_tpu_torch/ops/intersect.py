@@ -14,6 +14,8 @@ Port of ``pathtracer_tpu/ops/intersect.py``:
   and the CUDA cluster cull (``ops.intersect_cluster``,
   ``intersector="cluster"``), closest hit and any-hit each, with their plain
   versions on the CPU;
+- the BVH oracle (``ops.bvh_traverse``, ``intersector="bvh"``), a walk of
+  the scene's BVH in torch ops, whose shadow rays take its closest core;
 - analytic unit sphere/cube primitives;
 - winner attributes and materials picked by indexing with the winning
   triangle and material ids.
@@ -28,7 +30,7 @@ import dataclasses
 
 import torch
 
-from pathtracer_tpu_torch.ops import intersect_cluster
+from pathtracer_tpu_torch.ops import bvh_traverse, intersect_cluster
 from pathtracer_tpu_torch.ops import intersect_shortlist as shortlist
 from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist_kernel
 from pathtracer_tpu_torch.ops import intersect_small, intersect_tiled
@@ -49,14 +51,13 @@ SHORTLIST_MIN_T = 2048
 # against the cluster and shortlist kernels and the brute sweep (PERF.md).
 BAND_CUDA = "pallas"
 
-_NOT_PORTED = {"bvh": "ROADMAP queue item 6 (the BVH oracle)"}
-
 # (t [B], tri_id [B] i64) of the closest triangle, by route.
 _CLOSEST = {
     "shortlist": shortlist.closest_tri_shortlist,
     "shortlist_pallas": shortlist_kernel.closest_tri_shortlist_kernel,
     "pallas": intersect_tiled.closest_tri_tiled,
     "cluster": intersect_cluster.closest_tri_cluster,
+    "bvh": bvh_traverse.closest_tri_bvh,
 }
 # Any-hit entry points that also answer hit_any when asked ->
 # (occluded, hit_any or None).
@@ -187,8 +188,8 @@ def resolve_intersector(settings, scene) -> str:
     ("small_pallas") for at most ``SMALL_MAX_T8`` 8-rounded triangles and
     ``BAND_CUDA`` above that; on the CPU the plain "brute" sweep, as JAX.
     "pallas" (the tiled kernel) and "cluster" resolve on any scene: on the
-    CPU their wrappers run the plain versions, as "small_pallas"'s does. An
-    explicit "shortlist_pallas" needs a CUDA scene: on the CPU it raises
+    CPU their wrappers run the plain versions, as "small_pallas"'s does;
+    "bvh" (torch ops) resolves on any scene too. An explicit "shortlist_pallas" needs a CUDA scene: on the CPU it raises
     rather than run the twin.
     """
     method = settings.intersector
@@ -200,10 +201,6 @@ def resolve_intersector(settings, scene) -> str:
             return "brute"
         t8 = (scene.num_tris + 7) // 8 * 8
         return "small_pallas" if t8 <= intersect_small.SMALL_MAX_T8 else BAND_CUDA
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"intersector={method!r} is not ported yet: {_NOT_PORTED[method]}"
-        )
     if method not in ("brute", "small_pallas", *_CLOSEST):
         raise ValueError(f"unknown intersector {method!r}")
     if method == "shortlist_pallas" and not cuda:
@@ -238,7 +235,8 @@ def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
     elif method in _CLOSEST:
         # Direct lighting consumes "the shadow ray hit anything", which the
         # shortlist's cutoff-bounded any-hit loop does not compute: the
-        # closest-hit core answers both, as in the JAX package.
+        # closest-hit core answers both, as in the JAX package. The BVH
+        # oracle has no any-hit walk and always takes this branch.
         t_tri, _ = _CLOSEST[method](scene, o, d)
         occ, hit_any = t_tri < t_cut, torch.isfinite(t_tri)
     else:

@@ -3,7 +3,9 @@
 Port of ``pathtracer_tpu/render.py``: ``render`` runs either scheduler —
 "regen" traces every sample in the regenerative pool (ops.wavefront), "scan"
 traces one progressive sample wave at a time like the reference's frame
-loop — and ``render_image`` tonemaps the result into a numpy image.
+loop — ``render_checkpointed`` runs the pool in chunks and saves its state
+after each, so a killed render resumes, and ``render_image`` tonemaps the
+result into a numpy image.
 """
 
 from __future__ import annotations
@@ -104,6 +106,54 @@ def render(scene, camera, settings, progress_callback=None,
     """
     return render_stats(scene, camera, settings, progress_callback,
                         preview_every, preview_fn)[0]
+
+
+def render_checkpointed(scene, camera, settings, checkpoint_path: str,
+                        chunk_samples: int = 8, progress_callback=None) -> torch.Tensor:
+    """Resumable render -> mean radiance [H, W, 3]: the pool runs in chunks of
+    ``chunk_samples`` samples through ``sample_offset``, and after each the
+    radiance sum and the samples done are saved to ``checkpoint_path``
+    (``utils.checkpoint``) before ``progress_callback(done, spp)``. Kill it
+    at any point and rerun with the same arguments to continue: the counter
+    RNG makes the result equal a straight render up to summation order, with
+    the same rays traced. A state whose fingerprint differs starts over.
+    """
+    from pathtracer_tpu_torch.ops.wavefront import render_pool
+    from pathtracer_tpu_torch.utils.checkpoint import (
+        load_render_state,
+        render_fingerprint,
+        save_render_state,
+    )
+
+    fp = render_fingerprint(scene, settings)
+    n_pixels = settings.width * settings.height
+    state = load_render_state(checkpoint_path, fp)
+    if state is not None:
+        acc = torch.as_tensor(state[0], dtype=torch.float32, device=scene.device)
+        done = state[1]
+    else:
+        acc = torch.zeros((n_pixels, 3), dtype=torch.float32, device=scene.device)
+        done = 0
+
+    frame = ray_frame_tensors(camera, settings.width, settings.height, scene.device)
+    spp = settings.samples_per_pixel
+    while done < spp:
+        n = min(chunk_samples, spp - done)
+        img, _, _ = render_pool(
+            scene,
+            frame,
+            settings,
+            n_pixels=n_pixels,
+            batch=min(settings.batch_size, n_pixels * n),
+            rays_per_pixel=n,
+            sample_offset=done,
+        )
+        acc = acc + img
+        done += n
+        save_render_state(checkpoint_path, acc.cpu().numpy(), done, fp)
+        if progress_callback is not None:
+            progress_callback(done, spp)
+    return (acc / spp).reshape(settings.height, settings.width, 3)
 
 
 def render_image(scene, camera, settings, tonemap: str = "reference",

@@ -1,8 +1,9 @@
 """Image IO and comparison metrics, with the standard library only.
 
-Port of ``pathtracer_tpu/utils/image.py`` without Pillow: ``write_png``
-writes an RGB8 PNG (filter type 0 on every row) with ``zlib`` and ``struct``,
-and ``read_png`` reads that format back.
+Port of ``pathtracer_tpu/utils/image.py`` without Pillow: ``encode_png``
+makes the bytes of an RGB8 PNG (filter type 0 on every row) with ``zlib`` and
+``struct``, ``write_png`` writes them, and ``read_png`` reads that format
+back.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an [H, W, 3] float (linear, post-tonemap) or uint8 image as PNG."""
+def encode_png(img: np.ndarray) -> bytes:
+    """An [H, W, 3] float (linear, post-tonemap) or uint8 image as the bytes
+    of an RGB8 PNG."""
     arr = img if img.dtype == np.uint8 else to_uint8(img)
     h, w, c = arr.shape
     if c != 3:
@@ -36,11 +38,19 @@ def write_png(path: str, img: np.ndarray) -> None:
         axis=1,
     )
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
+    return b"".join([
+        _SIGNATURE,
+        _chunk(b"IHDR", header),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)),
+        _chunk(b"IEND", b""),
+    ])
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an [H, W, 3] float (linear, post-tonemap) or uint8 image as PNG."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", header))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)
 
 
 def read_png(path: str) -> np.ndarray:

@@ -1,0 +1,73 @@
+"""Profiling and observability.
+
+Port of ``pathtracer_tpu/utils/profiling.py``. Rays/s is a first-class
+counter (the integrator counts live-lane rays, ops.integrator), plus:
+
+- ``timed``: wall-clock block timer that waits for the card
+  (``torch.cuda.synchronize``) when ``result["block_on"]`` holds a CUDA
+  tensor;
+- ``trace``: context manager around ``torch.profiler`` that writes a Chrome
+  trace (``trace.json``, viewable in Perfetto or chrome://tracing) into a
+  directory;
+- ``RenderStats``: rays/paths/iterations throughput record.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+
+import torch
+
+
+@dataclasses.dataclass
+class RenderStats:
+    wall_s: float
+    rays: float
+    paths: float
+    iterations: int = 0
+
+    @property
+    def rays_per_sec(self) -> float:
+        return self.rays / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def paths_per_sec(self) -> float:
+        return self.paths / self.wall_s if self.wall_s > 0 else 0.0
+
+    def __str__(self) -> str:
+        return (
+            f"{self.rays_per_sec / 1e6:.2f} Mrays/s "
+            f"({self.paths_per_sec / 1e6:.2f} Mpaths/s, "
+            f"{self.wall_s:.3f}s wall, {self.iterations} iters)"
+        )
+
+
+@contextlib.contextmanager
+def timed(result: dict, key: str = "wall_s"):
+    """Time a block, waiting for the card when ``result['block_on']`` holds
+    a CUDA tensor (it is popped)."""
+    t0 = time.perf_counter()
+    yield result
+    block_on = result.pop("block_on", None)
+    if isinstance(block_on, torch.Tensor) and block_on.is_cuda:
+        torch.cuda.synchronize(block_on.device)
+    result[key] = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block with ``torch.profiler`` (host ops, and the card's
+    kernels when CUDA is available) and write a Chrome trace to
+    ``logdir/trace.json``; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -7,7 +7,8 @@ without one. On a machine with a card and without JAX:
 (the variable keeps tests/conftest.py from configuring JAX). Tolerances: the
 kernels' t is bit-equal to their plain versions' on the card (for the
 shortlist, tiled and cluster kernels also to the brute sweep's), ids and flags
-equal; renders as in chip_smoke.py phase 5.
+equal; renders as in chip_smoke.py phase 5. The threefry generator's bits on
+the card equal the CPU port's; the BVH oracle's t equals brute's.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ from pathtracer_tpu_torch.models import procedural
 from pathtracer_tpu_torch.models.pack import pack_scene
 from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
 from pathtracer_tpu_torch.ops import intersect as tint
+from pathtracer_tpu_torch.ops.bvh_traverse import closest_tri_bvh
 from pathtracer_tpu_torch.ops import intersect_cluster as cluster
 from pathtracer_tpu_torch.ops import intersect_shortlist as twin
 from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist
@@ -224,3 +226,40 @@ def test_tiled_and_cluster_wrappers_refuse_what_the_kernel_cannot_take(cuda, ker
         ENTRIES[kernel](scene, o.t().contiguous().t(), d)
     with pytest.raises(ValueError):
         tiled.occluded_tri_tiled(scene, o, d, torch.ones(64))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_threefry_card_bits_equal_cpu(cuda, seed):
+    """Threefry keys, jitter and bounce uniforms (per-lane and scalar depth)
+    on the card, bit-equal to the CPU port's (which equals JAX's)."""
+    from pathtracer_tpu_torch.ops import rng
+
+    g = np.random.default_rng(seed)
+    ids = [torch.as_tensor(g.integers(0, 1 << 32, 1 << 16, dtype=np.uint64).astype(np.int64))
+           for _ in range(2)]
+    depth = torch.as_tensor(g.integers(0, 17, 1 << 16))
+
+    def draws(dev):
+        keys = rng.ray_keys(rng.prng_key(seed), *(x.to(dev) for x in ids))
+        return [keys, rng.pixel_jitter_threefry(keys), rng.bounce_uniforms_threefry(keys, 3, 11),
+                rng.bounce_uniforms_threefry(keys, depth.to(dev), 7)]
+
+    for card, cpu in zip(draws(cuda), draws("cpu")):
+        assert torch.equal(card.cpu(), cpu)
+
+
+def test_bvh_oracle_equals_brute_on_card(cuda):
+    """The BVH walk on the card: hit masks and t equal brute's, ids equal
+    but on tied lanes; no kernel launched."""
+    scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh(30, 18)), cuda)
+    o, d = _rays(cuda)
+    before = (dict(tiled.launches), dict(small.launches))
+    t, tri_id = closest_tri_bvh(scene, o, d)
+    t_b, id_b = tint.closest_tri_brute(scene, o, d)
+    assert torch.equal(t, t_b)
+    lanes = torch.nonzero(tri_id != id_b).squeeze(1)  # ties only: the walk's t is brute's
+    win, oo, dd = tri_id[lanes], o[lanes], d[lanes]
+    t_win, _ = tint.mt_components(*oo.T, *dd.T, *scene.tri_v0[win].T, *scene.tri_e1[win].T,
+                                  *scene.tri_e2[win].T, win >= 0)
+    assert torch.equal(t_win, t_b[lanes])
+    assert (dict(tiled.launches), dict(small.launches)) == before

@@ -276,8 +276,14 @@ def test_resolve_auto(device, num_tris, padded, want):
 
 @pytest.mark.parametrize("method", ["bvh"])
 def test_unported_intersectors_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tint.resolve_intersector(RenderSettings(intersector=method),
+    """The last intersector that raised NotImplementedError (bvh, the BVH
+    oracle) resolves to itself on either device; a name that no package has
+    raises ValueError."""
+    for device in ("cpu", "cuda"):
+        assert tint.resolve_intersector(RenderSettings(intersector=method),
+                                        _stub(device, 36, 128)) == method
+    with pytest.raises(ValueError, match="unknown intersector"):
+        tint.resolve_intersector(RenderSettings(intersector=method + "_x"),
                                  _stub("cpu", 36, 128))
 
 
