@@ -1450,6 +1450,398 @@ def phase_cli_extras(dev):
             f"({len(events)} events, the small kernel among them); profiling.timed: {stats}")
 
 
+# Phase 16: inverse rendering by path replay. Sizes: (a) card vs the CPU
+# port, (b) the Cornell headline's shape, (c) kernel routes vs plain routes,
+# (e) resume; (d) runs recover_from_ground_truth at its defaults against a
+# GT_SIZE^2 spp GT_SPP render of the true scene.
+INVERSE_CHECK = dict(width=32, height=32, max_depth=9, scheduler="scan")
+INVERSE_FULL = dict(width=512, height=512, max_depth=17, scheduler="scan")
+INVERSE_ROUTES = dict(width=128, height=128, max_depth=9, scheduler="scan")
+INVERSE_RESUME = dict(width=32, height=32, max_depth=9, scheduler="scan")
+GT_SIZE, GT_SPP, GT_EVAL_SPP = 512, 16, 32
+# (d)'s steps, cut from recover_from_ground_truth's 120 to keep the phase
+# near 90 s: at 64^2 a step takes ~0.3-0.5 s on the H100 (PERF.md §6), and
+# the CPU port's fit passes both gates in 60 steps as in 120.
+GT_STEPS = 60
+RESUME_STEPS = 20
+# Gradient tolerances, of each field's largest |g|: card vs CPU (libm and
+# summation order; phase 5's renders agree to a tonemapped MSE of ~4e-15) and
+# a kernel route vs its plain route (t bit-equal: only the summation order of
+# the index backward differs).
+GRAD_TOL_CPU = 1e-3
+GRAD_TOL_ROUTE = 1e-4
+# A resumed run against the straight one, where the card's runs are not
+# bit-identical: largest |param difference| after RESUME_STEPS Adam steps.
+RESUME_ATOL = 1e-4
+
+
+def leaf_params(scene) -> dict:
+    """The scene's material arrays (``inverse.PARAM_FIELDS``) as fresh leaf
+    tensors requiring grad."""
+    from pathtracer_tpu_torch.inverse import material_params
+
+    return {k: v.detach().clone().requires_grad_(True)
+            for k, v in material_params(scene).items()}
+
+
+def step_inputs(scene, camera, st, seed: int = 0):
+    """A paired step's (frame, target rows, pixel ids, ids a, ids b) on the
+    scene's device: one path per pixel and wave, the target uniform in [0,
+    0.6) from ``seed``."""
+    from pathtracer_tpu_torch.ops.camera_rays import ray_frame_tensors
+
+    dev = scene.device
+    n = st.width * st.height
+    target = torch.as_tensor(np.random.default_rng(seed).uniform(0.0, 0.6, (n, 3)),
+                             dtype=torch.float32, device=dev)
+    pix = torch.arange(n, device=dev)
+    return (ray_frame_tensors(camera, st.width, st.height, dev), target, pix,
+            torch.zeros_like(pix), torch.ones_like(pix))
+
+
+def counted(fn):
+    """``fn()`` with every launch count set to 0 just before -> (its result,
+    the counts by family just after)."""
+    reset_launches()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {f: dict(c) for f, c in launch_counts().items()}
+
+
+def replayed_grads(scene, camera, st, loss_space: str = "radiance", forward: bool = True):
+    """One paired step's (loss, grads) by ``inverse.loss_and_grads`` ->
+    ((loss, grads), launches of the forward pass alone (the objective under
+    no_grad; None unless ``forward``), launches of the whole step)."""
+    from pathtracer_tpu_torch import inverse
+
+    inputs = step_inputs(scene, camera, st)
+    params = leaf_params(scene)
+    fwd = None
+    if forward:
+        with torch.no_grad():
+            _, fwd = counted(lambda: inverse._OBJECTIVES[loss_space](params, scene, st,
+                                                                     *inputs))
+    out, total = counted(lambda: inverse.loss_and_grads(params, scene, st, *inputs,
+                                                        loss_space=loss_space))
+    return out, fwd, total
+
+
+def grad_errors(grads, ref) -> dict:
+    """By field: the largest |difference| over the field's largest |g| in
+    ``ref`` (0 where both are all zero)."""
+    out = {}
+    for k, r in ref.items():
+        r, g = r.detach().cpu().double(), grads[k].detach().cpu().double()
+        assert torch.isfinite(g).all(), f"{k}: non-finite gradient"
+        scale = r.abs().max().item()
+        diff = (g - r).abs().max().item()
+        out[k] = diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
+    return out
+
+
+def check_replay(label, fwd, total, family: str) -> None:
+    """The kernel ``family`` launched in the forward pass, and each bounce's
+    closest hit once more in the replay."""
+    f, t = fwd[family], total[family]
+    assert all(v > 0 for v in f.values()), f"{label}: {family} kernel not launched: {f}"
+    assert t["closest"] == 2 * f["closest"], f"{label}: replay launches {t} vs forward {f}"
+    assert t["occluded"] > f["occluded"], f"{label}: no any-hit launch in the replay: {t}"
+    assert not any(v for fam, c in total.items() if fam != family for v in c.values()), total
+
+
+def inverse_card_vs_cpu(dev) -> None:
+    """(a) One paired step, both loss spaces, on the glossy Cornell box (so
+    all four fields have gradients): the card (small kernel) against the CPU
+    port."""
+    from pathtracer_tpu_torch.models.procedural import cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+
+    st = RenderSettings(**INVERSE_CHECK)
+    card, camera = cornell_box_scene(glossy_tall_box=True, device=dev)
+    cpu, _ = cornell_box_scene(glossy_tall_box=True, device="cpu")
+    for space in ("radiance", "display"):
+        (loss, grads), fwd, total = replayed_grads(card, camera, st, space)
+        (loss_c, grads_c), _, _ = replayed_grads(cpu, camera, st, space, forward=False)
+        check_replay(space, fwd, total, "small")
+        err = grad_errors(grads, grads_c)
+        assert all(e <= GRAD_TOL_CPU for e in err.values()), (space, err)
+        rel = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+        assert rel <= 1e-5, (space, loss.item(), loss_c.item())
+        log("inverse", f"(a) {space} loss, {st.width}^2 depth {st.max_depth}, glossy box: card "
+            f"{loss.item():.8f} vs CPU {loss_c.item():.8f}; grads card vs CPU, largest "
+            f"difference over max |g| by field {err} (tolerance {GRAD_TOL_CPU}); small kernel "
+            f"launches forward {fwd['small']}, forward + replay {total['small']}")
+
+
+def kept_loss_and_grads(params, scene, st, frame, target, pix, ids_a, ids_b):
+    """The paired radiance objective's (loss, grads) without path replay: the
+    integrator's loop over ``bounce_core`` written out here, so autograd
+    keeps every bounce's intermediates."""
+    from pathtracer_tpu_torch.inverse import with_material_params
+    from pathtracer_tpu_torch.ops import rng
+    from pathtracer_tpu_torch.ops.camera_rays import generate_rays
+    from pathtracer_tpu_torch.ops.integrator import bounce_core
+
+    scene = with_material_params(scene, params)
+
+    def rows(ids):
+        o, d = generate_rays(frame, st.width, st.height, pix, rng.pixel_jitter(st, pix, ids))
+        beta, radiance = torch.ones_like(o), torch.zeros_like(o)
+        alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+        spec = torch.zeros_like(alive)
+        for depth in range(st.max_depth):
+            o, d, beta, radiance, alive, spec, _ = bounce_core(
+                scene, st, o, d, beta, radiance, alive, spec, pix, ids, depth)
+            if not bool(torch.any(alive)):
+                break
+        return torch.maximum(radiance, torch.zeros((), device=o.device))
+
+    rad_a, rad_b = rows(ids_a), rows(ids_b)
+    surrogate = torch.mean((rad_a.detach() - target) * rad_b + (rad_b.detach() - target) * rad_a)
+    grads = torch.autograd.grad(surrogate, list(params.values()), allow_unused=True,
+                                materialize_grads=True)
+    loss = torch.mean((0.5 * (rad_a + rad_b).detach() - target) ** 2)
+    return loss, dict(zip(params, grads))
+
+
+def busy_ms(spans) -> float:
+    """Device busy: the union of the device intervals, ms."""
+    busy_us, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy_us / 1e3
+
+
+def top_kernels(spans, n: int = 5) -> str:
+    """The ``n`` device kernels with the most time in ``spans``: name (cut),
+    ms, count."""
+    by = {}
+    for a, b, name in spans:
+        ms, k = by.get(name, (0.0, 0))
+        by[name] = (ms + (b - a) / 1e3, k + 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
+    return "; ".join(f"{name[:90]} {ms:.1f} ms in {k}" for name, (ms, k) in top)
+
+
+def inverse_full(dev) -> None:
+    """(b) One ``make_train_step`` step at the Cornell headline's shape (two
+    waves of 262,144 paths): wall, peak memory, one profiled step (busy
+    share, intervals per bounce, the kernels with the most device time),
+    and the first step's loss and gradients without replay (peak and
+    agreement)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathtracer_tpu_torch.inverse import loss_and_grads, make_train_step
+    from pathtracer_tpu_torch.models.procedural import cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+
+    scene, camera = cornell_box_scene(device=dev)
+    st = RenderSettings(**INVERSE_FULL)
+    inputs = step_inputs(scene, camera, st)
+    params = leaf_params(scene)
+    first = {k: v.detach().clone() for k, v in params.items()}
+    step = make_train_step(st, torch.optim.Adam(list(params.values()), lr=5e-2))
+    torch.cuda.reset_peak_memory_stats()
+    (loss, wall), counts = counted(lambda: sync_time(lambda: step(params, scene, *inputs)))
+    peak = torch.cuda.max_memory_allocated()
+    grads = {k: p.grad.detach().clone() for k, p in params.items()}
+    assert all(v > 0 for v in counts["small"].values()), f"small kernel not launched: {counts}"
+    assert torch.isfinite(loss), loss
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (_, prof_wall), prof_counts = counted(
+            lambda: sync_time(lambda: step(params, scene, *inputs)))
+    spans = device_spans(prof)
+    bounces = prof_counts["small"]["closest"]  # each bounce run, forward and replay
+    busy = busy_ms(spans)
+    log("inverse", f"(b) make_train_step at {st.width}^2 depth {st.max_depth}, 2 waves of "
+        f"{st.width * st.height} paths: first step {wall:.4f} s, loss {loss.item():.6f}, peak "
+        f"memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated), kernel launches "
+        f"{counts['small']}; profiled step ({prof_wall:.4f} s): {len(spans)} device "
+        f"intervals, {len(spans) / bounces:.1f} per bounce run ({bounces} bounces, forward "
+        f"and replay), device busy {busy:.3f} ms, busy share {busy / (wall * 1e3):.4f} of "
+        f"the first step's wall; most device time: {top_kernels(spans)}")
+
+    # One material gather's backward alone, at the step's lanes: the gradient
+    # of scene.mat_Kd[mat_id] (ops.intersect.material_lookup) with the
+    # Cornell box's material ids at the first bounce.
+    ids = torch.randint(0, scene.mat_Kd.shape[0], (st.width * st.height,), device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    table = scene.mat_Kd.detach().clone().requires_grad_(True)
+    w = torch.rand((ids.shape[0], 3), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    gather_ms = event_ms(lambda: torch.autograd.grad((table[ids] * w).sum(), table), n=5)
+    log("inverse", f"(b) one gather's backward alone (a [{ids.shape[0]}, 3] gather from the "
+        f"[{table.shape[0]}, 3] albedo table by id, its gradient by index_put_ with "
+        f"accumulate): {gather_ms:.3f} ms (events, mean of 5)")
+
+    kept = {k: v.clone().requires_grad_(True) for k, v in first.items()}
+    torch.cuda.reset_peak_memory_stats()
+    (loss_k, grads_k), wall_k = sync_time(lambda: kept_loss_and_grads(kept, scene, st,
+                                                                      *inputs))
+    peak_k = torch.cuda.max_memory_allocated()
+    err = grad_errors(grads, grads_k)
+    assert all(e <= GRAD_TOL_ROUTE for e in err.values()), err
+    assert abs(loss.item() - loss_k.item()) <= 1e-6 * abs(loss_k.item()), (loss, loss_k)
+    log("inverse", f"(b) the first step's loss and gradients without replay (every bounce's "
+        f"intermediates kept): peak {peak_k / 2**30:.3f} GiB ({peak_k / peak:.1f}x the "
+        f"step's) in {wall_k:.4f} s; grads agree with the step's, largest difference over "
+        f"max |g| {err} (tolerance {GRAD_TOL_ROUTE})")
+
+
+def inverse_routes(dev) -> None:
+    """(c) One paired step at INVERSE_ROUTES on the band stand-in (``auto``:
+    the tiled kernel, against brute) and on the 12,580-triangle stand-in
+    (``auto``: the shortlist kernel, against its twin)."""
+    from pathtracer_tpu_torch.models.pack import pack_scene
+    from pathtracer_tpu_torch.models.procedural import cornell_box_camera, torus_cornell_mesh
+    from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
+
+    camera = cornell_box_camera()
+    for label, mesh, family, plain in (("band", band_mesh(), "tiled", "brute"),
+                                       ("torus12580", torus_cornell_mesh(), "shortlist",
+                                        "shortlist")):
+        scene = scene_from_packed(pack_scene(mesh), dev)
+        st = RenderSettings(**INVERSE_ROUTES)
+        ((loss, grads), fwd, total), wall = sync_time(lambda: replayed_grads(scene, camera, st))
+        check_replay(label, fwd, total, family)
+        ((loss_p, grads_p), _, total_p), wall_p = sync_time(
+            lambda: replayed_grads(scene, camera, RenderSettings(**INVERSE_ROUTES,
+                                                                 intersector=plain),
+                                   forward=False))
+        assert not any(v for c in total_p.values() for v in c.values()), total_p
+        err = grad_errors(grads, grads_p)
+        assert all(e <= GRAD_TOL_ROUTE for e in err.values()), (label, err)
+        log("inverse", f"(c) {label} ({scene.num_tris} triangles) {st.width}^2 depth "
+            f"{st.max_depth}: auto ({family} kernel, forward {fwd[family]}, forward + replay "
+            f"{total[family]}) loss {loss.item():.8f}, {wall:.4f} s; {plain} loss "
+            f"{loss_p.item():.8f}, {wall_p:.4f} s, no kernel; grads, largest difference over "
+            f"max |g| {err} (tolerance {GRAD_TOL_ROUTE})")
+
+
+def inverse_ground_truth(dev) -> None:
+    """(d) Configuration 5's shape through ``recover_from_ground_truth`` at
+    its defaults but GT_STEPS steps, against a PNG of the true scene
+    rendered here."""
+    from pathtracer_tpu_torch.inverse import (
+        downsample_display,
+        recover_from_ground_truth,
+        with_material_params,
+    )
+    from pathtracer_tpu_torch.models.procedural import write_cornell_box_files
+    from pathtracer_tpu_torch.models.scene import load_scene
+    from pathtracer_tpu_torch.ops.tonemap import tonemap_reference
+    from pathtracer_tpu_torch.render import render
+    from pathtracer_tpu_torch.utils.image import read_png, write_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = write_cornell_box_files(tmp)
+        scene, camera, st, _ = load_scene(ini, device=dev, width=GT_SIZE, height=GT_SIZE,
+                                          samples_per_pixel=GT_SPP)
+        png = os.path.join(tmp, "target.png")
+        write_png(png, tonemap_reference(render(scene, camera, st)).cpu().numpy())
+        (out, wall), counts = counted(lambda: sync_time(
+            lambda: recover_from_ground_truth(ini, png, steps=GT_STEPS)))
+        true, pert, params, losses = out
+        assert all(v > 0 for v in counts["small"].values()), counts
+        _, _, ev, _ = load_scene(ini, device=dev, width=64, height=64,
+                                 samples_per_pixel=GT_EVAL_SPP, max_depth=9, scheduler="scan")
+        gt = downsample_display(read_png(png), GT_SIZE // ev.width)
+
+    def display_mse(s):
+        img = tonemap_reference(render(s, camera, ev)).cpu().numpy()
+        return float(np.mean((img - gt) ** 2))
+
+    mse_true, mse_pert = display_mse(true), display_mse(pert)
+    mse_fit = display_mse(with_material_params(pert, params))
+    kd, kd_true = params["mat_Kd"].cpu().numpy(), true.mat_Kd.cpu().numpy()
+    visible = true.mat_Ke.cpu().numpy().sum(axis=1) == 0.0
+    colored = visible & (np.ptp(kd_true, axis=1) > 0.2)
+    err_rg = np.abs(kd - kd_true)[:, :2].max(axis=1)
+    assert mse_fit < 0.5 * mse_pert, (mse_pert, mse_fit)
+    assert colored.sum() == 2 and (err_rg[colored] < 0.25).all(), err_rg[colored]
+    log("inverse", f"(d) recover_from_ground_truth at its defaults (fit {ev.width}^2, lr "
+        f"5e-2, Kd x 0.5, depth 9) but {len(losses)} steps (default 120) against a "
+        f"{GT_SIZE}^2 spp {GT_SPP} render: {wall:.3f} s, {len(losses) / wall:.2f} steps/s "
+        f"(scene load included); "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; display MSE ({GT_EVAL_SPP} spp) true "
+        f"{mse_true:.6f}, perturbed {mse_pert:.6f}, fit {mse_fit:.6f}; colored walls' R/G Kd "
+        f"error {err_rg[colored]} (< 0.25); small kernel launches {counts['small']}")
+
+
+def inverse_resume(dev) -> None:
+    """(e) A RESUME_STEPS-step recovery cut after half by ``stop_after`` and
+    resumed from its checkpoint, against a straight run; where they differ,
+    a second straight run and the same under
+    torch.use_deterministic_algorithms."""
+    from pathtracer_tpu_torch.inverse import recover_materials, with_material_params
+    from pathtracer_tpu_torch.models.procedural import cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.render import render
+
+    scene, camera = cornell_box_scene(device=dev)
+    st = RenderSettings(**INVERSE_RESUME, samples_per_pixel=4)
+    target = render(scene, camera, st)
+    pert = with_material_params(scene, {"mat_Kd": scene.mat_Kd * 0.5})
+    kw = dict(steps=RESUME_STEPS, learning_rate=5e-2)
+
+    def runs(again: bool):
+        straight, _ = recover_materials(pert, camera, st, target, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "state.npz")
+            recover_materials(pert, camera, st, target, checkpoint_path=ckpt,
+                              stop_after=RESUME_STEPS // 2, **kw)
+            resumed, losses = recover_materials(pert, camera, st, target,
+                                                checkpoint_path=ckpt, **kw)
+        assert len(losses) == RESUME_STEPS - RESUME_STEPS // 2
+        other = {"resumed": resumed}
+        if again:
+            other["again"] = recover_materials(pert, camera, st, target, **kw)[0]
+        return {name: max((run[k] - straight[k]).abs().max().item() for k in straight)
+                for name, run in other.items()}
+
+    diff, wall = sync_time(lambda: runs(again=False))
+    exact = diff["resumed"] == 0.0
+    log("inverse", f"(e) {RESUME_STEPS}-step recovery at {st.width}^2, cut after "
+        f"{RESUME_STEPS // 2} and resumed: largest |param difference| from a straight run "
+        f"{diff['resumed']:.3e} ({'bit-identical' if exact else 'not bit-identical'} by "
+        f"default; {wall:.2f} s)")
+    if exact:
+        return
+    diff = runs(again=True)
+    # Which op: the backward of a gather by index (material_lookup's
+    # scene.mat_Kd[mat_id]) accumulates into the table twice on the same input.
+    idx = torch.randint(0, 5, (1 << 18,), device=dev)
+    table = torch.rand((5, 3), device=dev, requires_grad=True)
+    w = torch.rand((1 << 18, 3), device=dev)
+    g1, g2 = (torch.autograd.grad((table[idx] * w).sum(), table)[0] for _ in range(2))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = runs(again=True)
+        g3, g4 = (torch.autograd.grad((table[idx] * w).sum(), table)[0] for _ in range(2))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log("inverse", f"(e) the index backward (gather of a [5, 3] table by 262,144 ids) twice: "
+        f"{'equal' if torch.equal(g1, g2) else 'different'} by default, "
+        f"{'equal' if torch.equal(g3, g4) else 'different'} under "
+        f"torch.use_deterministic_algorithms(True); a second straight run differs by "
+        f"{diff['again']:.3e}; under it: resumed {det['resumed']:.3e}, a second straight "
+        f"run {det['again']:.3e}")
+    if det["resumed"] != 0.0:
+        assert diff["resumed"] <= RESUME_ATOL, diff
+        log("inverse", f"(e) held to a tolerance: resumed within {RESUME_ATOL} of straight")
+
+
+def phase_inverse(dev) -> None:
+    t0 = time.perf_counter()
+    inverse_card_vs_cpu(dev)
+    inverse_full(dev)
+    inverse_routes(dev)
+    inverse_ground_truth(dev)
+    inverse_resume(dev)
+    log("inverse", f"phase 16 took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     p.add_argument("--band-pairs", type=int, default=0, metavar="N",
@@ -1492,6 +1884,7 @@ def main(argv=None) -> int:
     phase_threefry(dev)
     phase_bvh(dev)
     phase_cli_extras(dev)
+    phase_inverse(dev)
 
     or_ms, or_err, or_bound = or_ms["band1152"]
     rows = []

@@ -4,7 +4,7 @@ Host-side equivalent of the reference's camera setup: the XML
 ``<cameradata>`` block (pos/up/focus/heightangle, ``src/index.ts:34-44``)
 and the world-to-camera / camera-to-world matrix pair built in
 ``src/program-raymarch.ts:62-65``. Device-side ray generation that consumes
-this lives in ``pathtracer_tpu.ops.camera_rays``.
+this lives in ``pathtracer_tpu_torch.ops.camera_rays``.
 
 Conventions (matching the reference's WGSL ray setup,
 ``program-raymarch.wgsl:56-74``):

@@ -11,7 +11,16 @@ advances one masked bounce at a time. Per bounce, in the reference's order:
   6. BSDF select + sample: dielectric / mirror / glossy / diffuse
 
 All randomness is counter-based on (pixel, sample, bounce) (ops.rng), so a
-path's radiance does not depend on its lane or batch. Inference only.
+path's radiance does not depend on its lane or batch.
+
+Path replay: when a scene tensor requires grad (inverse rendering,
+``pathtracer_tpu_torch.inverse``), ``radiance_batch_stats`` runs each bounce
+under ``torch.utils.checkpoint``, the counterpart of the JAX package's
+``jax.checkpoint`` around its scan step. The forward pass keeps only each
+bounce's inputs; the backward pass replays the bounce from them, and the
+counter RNG draws the same decisions again. The replay traces its rays
+through the same intersection kernels as the forward pass. A render whose
+scene needs no gradient runs the bounces as they are.
 """
 
 from __future__ import annotations
@@ -19,7 +28,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from pathtracer_tpu_torch.models.scene import TENSOR_FIELDS
 from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.bsdf import (
     dielectric_directions,
@@ -232,18 +243,29 @@ def radiance_batch_stats(scene, settings, o, d, pixel_ids, sample_ids):
     """Radiance [B, 3] plus the number of rays traced (int64 tensor).
 
     ``max_depth`` bounces as a Python loop; it stops early once every lane
-    is dead, which changes neither result.
+    is dead, which changes neither result nor gradient (a dead lane adds
+    nothing). With grad enabled and a scene tensor requiring grad, each
+    bounce runs under ``torch.utils.checkpoint`` (path replay, see the
+    module docstring).
     """
     beta = torch.ones_like(o)
     radiance = torch.zeros_like(o)
     alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     spec = torch.zeros_like(alive)
     n_rays = torch.zeros((), dtype=torch.int64, device=o.device)
+    replay = torch.is_grad_enabled() and any(
+        getattr(scene, f).requires_grad for f in TENSOR_FIELDS)
     for depth in range(settings.max_depth):
-        o, d, beta, radiance, alive, spec, dn = bounce_core(
-            scene, settings, o, d, beta, radiance, alive, spec,
-            pixel_ids, sample_ids, depth,
-        )
+        args = (scene, settings, o, d, beta, radiance, alive, spec,
+                pixel_ids, sample_ids, depth)
+        if replay:
+            # All randomness is counter-based: no torch generator is drawn,
+            # so there is no RNG state to preserve for the replay.
+            out = checkpoint(bounce_core, *args, use_reentrant=False,
+                             preserve_rng_state=False)
+        else:
+            out = bounce_core(*args)
+        o, d, beta, radiance, alive, spec, dn = out
         n_rays = n_rays + dn
         if not bool(torch.any(alive)):
             break

@@ -149,7 +149,15 @@ def occluded_tri_small_plain(scene, o, d, t_cut, want_any: bool = False):
 def check_rays(scene, o, d, *per_ray):
     """Refuse what a kernel cannot take: rays ``o``, ``d`` [B, 3] and
     ``per_ray`` [B] tensors must be contiguous float32 on the scene's CUDA
-    device."""
+    device, and none may require grad: a kernel reads raw pointers and has no
+    backward, so it would cut the graph without a word (as in the JAX
+    package, where ``pallas_call`` has no VJP). Material gradients never pass
+    through a kernel: they reach the materials through gathers by id."""
+    if any(x.requires_grad for x in (o, d, *per_ray)):
+        raise ValueError(
+            "the kernel has no backward: rays or cutoffs that require grad would "
+            "lose their gradient here; pass them detached"
+        )
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, not {dev}")

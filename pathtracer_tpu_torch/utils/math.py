@@ -3,13 +3,14 @@
 TPU-native equivalent of the reference's host math layer
 (``src/ts-util/math.ts`` and the ``@toysinbox3dprinting/js-geometry`` mat4
 helpers used by ``src/index.ts:49-113``). Everything here runs once at scene
-load time on the CPU; device-side math lives in ``pathtracer_tpu.ops``.
+load time on the CPU; device-side math lives in ``pathtracer_tpu_torch.ops``.
 
 Matrices are row-major ``np.ndarray`` of shape (4, 4) acting on column
 vectors: ``p' = M @ [x, y, z, 1]``.
 
-This module is a verbatim copy of ``pathtracer_tpu/utils/math.py``: the
-port imports nothing of the JAX package.
+This module is a copy of ``pathtracer_tpu/utils/math.py``, verbatim but for
+this docstring, which names the port's modules: the port imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations

@@ -181,9 +181,9 @@ def test_png_writer_matches_pil(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every port module, then a scene loaded from written files (the OBJ
-    parser and the BVH builder run): no JAX and no module of the JAX
-    package is imported."""
+    """Every port module (the CLI and inverse rendering among them), then a
+    scene loaded from written files (the OBJ parser and the BVH builder run):
+    no JAX, no optax and no module of the JAX package is imported."""
     code = (
         "import importlib, pkgutil, sys, tempfile\n"
         "import pathtracer_tpu_torch as p\n"
@@ -196,8 +196,9 @@ def test_port_imports_no_jax():
         "                         device='cpu')[0]\n"
         "assert s.num_tris == 36 + 2 * 8 * 6, s.num_tris\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'pathtracer_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'pathtracer_tpu'))\n"
         "assert 'pathtracer_tpu_torch.cli' in sys.modules\n"
+        "assert 'pathtracer_tpu_torch.inverse' in sys.modules\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -8,8 +8,13 @@ without one. On a machine with a card and without JAX:
 kernels' t is bit-equal to their plain versions' on the card (for the
 shortlist, tiled and cluster kernels also to the brute sweep's), ids and flags
 equal; renders as in chip_smoke.py phase 5. The threefry generator's bits on
-the card equal the CPU port's; the BVH oracle's t equals brute's.
+the card equal the CPU port's; the BVH oracle's t equals brute's. Inverse
+rendering's paired step: card vs CPU within 1e-3 of each field's largest
+|g|, a kernel route vs its plain route within 1e-4 (only the summation order
+of the index backward differs), as chip_smoke.py phase 16.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -263,3 +268,70 @@ def test_bvh_oracle_equals_brute_on_card(cuda):
                                   *scene.tri_e2[win].T, win >= 0)
     assert torch.equal(t_win, t_b[lanes])
     assert (dict(tiled.launches), dict(small.launches)) == before
+
+
+def _paired_step(scene, camera, st, loss_space="radiance"):
+    """One paired step's (loss, grads by field) through
+    inverse.loss_and_grads, and the launches it made by kernel family."""
+    from pathtracer_tpu_torch import inverse
+    from pathtracer_tpu_torch.ops.camera_rays import ray_frame_tensors
+
+    dev = scene.device
+    n = st.width * st.height
+    target = torch.as_tensor(np.random.default_rng(0).uniform(0.0, 0.6, (n, 3)),
+                             dtype=torch.float32, device=dev)
+    pix = torch.arange(n, device=dev)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in inverse.material_params(scene).items()}
+    families = {"small": small.launches, "shortlist": shortlist.launches,
+                "tiled": tiled.launches, "cluster": cluster.launches}
+    before = {f: dict(c) for f, c in families.items()}
+    loss, grads = inverse.loss_and_grads(
+        params, scene, st, ray_frame_tensors(camera, st.width, st.height, dev), target, pix,
+        torch.zeros_like(pix), torch.ones_like(pix), loss_space)
+    rose = {f: {k: c[k] - before[f][k] for k in c} for f, c in families.items()}
+    return loss.item(), {k: g.cpu() for k, g in grads.items()}, rose
+
+
+def _assert_grads_close(got, ref, tol):
+    for k, r in ref.items():
+        assert torch.isfinite(got[k]).all(), k
+        assert (got[k] - r).abs().max() <= tol * r.abs().max(), (k, got[k], r)
+
+
+@pytest.mark.parametrize("loss_space", ["radiance", "display"])
+def test_inverse_paired_step_card_equals_cpu(cuda, loss_space):
+    """One paired step on the glossy Cornell box: the card (small kernel, in
+    the forward pass and in the replay) against the CPU port."""
+    st = RenderSettings(width=32, height=32, max_depth=4, scheduler="scan")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene, camera = procedural.cornell_box_scene(glossy_tall_box=True, device=dev)
+        out[dev.type] = _paired_step(scene, camera, st, loss_space)
+    (loss, grads, rose), (loss_c, grads_c, _) = out["cuda"], out["cpu"]
+    assert abs(loss - loss_c) <= 1e-5 * abs(loss_c)
+    _assert_grads_close(grads, grads_c, 1e-3)
+    assert all(v > 0 for v in rose["small"].values()), rose
+
+
+# (mesh, auto's kernel family, the plain route it is held against)
+INVERSE_ROUTES = {"cornell": (None, "small", "brute"), "band": ((30, 18), "tiled", "brute"),
+                  "torus12580": ((112, 56), "shortlist", "shortlist")}
+
+
+@pytest.mark.parametrize("route", list(INVERSE_ROUTES))
+def test_inverse_paired_step_kernel_route_equals_plain_route(cuda, route):
+    """One paired step through ``auto``'s kernel (launched in the forward
+    pass and again in the replay) against its plain route, on the card."""
+    mesh, family, plain = INVERSE_ROUTES[route]
+    m = procedural.cornell_box_mesh() if mesh is None else procedural.torus_cornell_mesh(*mesh)
+    scene = scene_from_packed(pack_scene(m), cuda)
+    camera = procedural.cornell_box_camera()
+    st = RenderSettings(width=32, height=32, max_depth=4, scheduler="scan")
+    loss, grads, rose = _paired_step(scene, camera, st)
+    loss_p, grads_p, rose_p = _paired_step(scene, camera,
+                                           dataclasses.replace(st, intersector=plain))
+    assert abs(loss - loss_p) <= 1e-6 * abs(loss_p)
+    _assert_grads_close(grads, grads_p, 1e-4)
+    assert all(v > 0 for v in rose[family].values()), rose
+    assert not any(v for c in rose_p.values() for v in c.values()), rose_p

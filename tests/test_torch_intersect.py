@@ -313,6 +313,45 @@ def test_kernel_wrapper_never_takes_plain_path_off_cpu(scenes):
     assert small.launches == {"closest": 0, "occluded": 0}
 
 
+def _grad_entries():
+    """Each CUDA kernel wrapper entry as fn(scene, o, d, t_cut)."""
+    from pathtracer_tpu_torch.ops import intersect_cluster as cluster
+    from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist
+    from pathtracer_tpu_torch.ops import intersect_tiled as tiled
+
+    return {
+        "small": lambda s, o, d, t: small.closest_tri_small(s, o, d),
+        "small-occluded": lambda s, o, d, t: small.occluded_tri_small(s, o, d, t, True),
+        "shortlist": lambda s, o, d, t: shortlist.closest_tri_shortlist_kernel(s, o, d),
+        "shortlist-occluded": lambda s, o, d, t: shortlist.occluded_tri_shortlist_kernel(
+            s, o, d, t),
+        "tiled": lambda s, o, d, t: tiled.closest_tri_tiled(s, o, d),
+        "tiled-occluded": lambda s, o, d, t: tiled.occluded_tri_tiled(s, o, d, t, True),
+        "cluster": lambda s, o, d, t: cluster.closest_tri_cluster(s, o, d),
+        "cluster-occluded": lambda s, o, d, t: cluster.occluded_tri_cluster(s, o, d, t, True),
+    }
+
+
+@pytest.mark.parametrize("entry", list(_grad_entries()))
+def test_kernel_wrapper_refuses_inputs_that_require_grad(scenes, entry):
+    """A kernel reads raw pointers and has no backward: each CUDA entry
+    refuses rays (and, any-hit, cutoffs) that require grad before it
+    launches, rather than cut the graph silently. The rays lie on the meta
+    device, which takes the kernel path off the CPU."""
+    _, scene = scenes["cornell36"]
+    fn = _grad_entries()[entry]
+    o, d = torch.empty((4, 3), device="meta"), torch.empty((4, 3), device="meta")
+    t_cut = torch.empty(4, device="meta")
+    cases = [(o.requires_grad_(True), d, t_cut), (o.detach(), d.requires_grad_(True), t_cut)]
+    if entry.endswith("occluded"):
+        cases.append((o.detach(), d.detach(), t_cut.requires_grad_(True)))
+    for args in cases:
+        with pytest.raises(ValueError, match="no backward"):
+            fn(scene, *args)
+    with pytest.raises(ValueError, match="CUDA"):  # detached: refused for the device only
+        fn(scene, o.detach(), d.detach(), t_cut.detach())
+
+
 @pytest.mark.parametrize("b, ok", [(2**31 - 1, True), (2**31, False)])
 def test_kernel_batch_bound(b, ok):
     """The C entry points count rays in int32 (offsets inside are int64)."""
