@@ -116,6 +116,26 @@ non-zero):
                 render writes a Chrome trace with the small kernel in it, and
                 profiling.timed gives a positive wall.
 
+17. parallel -- ``pathtracer_tpu_torch.parallel``: (a) a one-process NCCL
+                group (``distributed.initialize``) and ``make_mesh()``: the
+                Cornell headline's shape through ``render_pool_sharded_stats``
+                against the unsharded ``render_stats``, in turns: equal rays
+                traced, image MSE <= 1e-6, the small kernel launched; walls of
+                both. (b) One process, three shards on the card
+                (``make_mesh([cuda] * 3)``): the band and 12,580-triangle
+                stand-ins at 128^2, spp 4 through the sharded pool (equal
+                rays, MSE <= 1e-6, the tiled and shortlist kernels launched;
+                walls), the sharded scan at 64^2, spp 2 bit-equal to the
+                unsharded scan, and one training step (32^2, depth 9, over four
+                shards: 1,024 rows) with gradients within 1e-5 of each field's
+                max |g| of the unsharded step's. (c) Two processes on the card
+                over gloo (NCCL refuses two ranks on one GPU), this script
+                run again with ``--parallel-worker``, one shard each: Cornell
+                128^2, spp 8, depth 17 equal to the single-process render
+                within rtol 3e-5 / atol 3e-6, with equal rays; both exit 0.
+                (d) The CLI's ``--sharded`` at 128^2, spp 8 writes the plain
+                CLI's PNG (up to one 8-bit step on at most 0.1% of values).
+
 ``--band-pairs N`` adds N rounds of phase 11's renders with "pallas",
 "pallas" with the pool's ray sort on, "cluster", "shortlist_pallas" and
 "brute", in turn forward and backward order, and prints each route's median
@@ -1842,11 +1862,277 @@ def phase_inverse(dev) -> None:
     log("inverse", f"phase 16 took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 17: parallel/. (a) the Cornell headline over a one-process NCCL
+# group; (b) three shards on one card: the band and 12,580-triangle stand-ins
+# at PAR_SIZE^2 spp PAR_SPP, the scan at PAR_SCAN_SIZE^2, and one training
+# step at INVERSE_CHECK over four; (c) two processes on the card over gloo (NCCL refuses two
+# ranks on one GPU) at PAR_WORKER; (d) the CLI's --sharded at EXTRAS_SIZE.
+PAR_SHARDS = 3
+PAR_STEP_SHARDS = 4  # INVERSE_CHECK's 1,024 rows do not split into 3
+PAR_SIZE, PAR_SPP = 128, 4
+PAR_SCAN_SIZE, PAR_SCAN_SPP = 64, 2
+PAR_WORKER = dict(width=128, height=128, samples_per_pixel=8, max_depth=17, scheduler="regen")
+PAR_GRAD_TOL = 1e-5  # of each field's largest |g|: only summation order differs
+PAR_TIMEOUT = 300  # seconds for each worker of (c)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def port_taken(text: str) -> bool:
+    """Whether a rendezvous failed because another process took the port
+    between ``free_port`` and the listen (such a run is repeated once)."""
+    return "EADDRINUSE" in text or "address already in use" in text
+
+
+def sharded_against_unsharded(label, scene, camera, st, mesh, family):
+    """The pool sharded over ``mesh`` against the unsharded pool, in turns
+    (unsharded, sharded, sharded, unsharded): equal rays traced, image MSE
+    <= 1e-6, ``family``'s kernel launched by the first sharded run; walls."""
+    from pathtracer_tpu_torch.parallel.render import render_pool_sharded_stats
+    from pathtracer_tpu_torch.render import render_stats
+
+    walls, out, launches = {"unsharded": [], "sharded": []}, {}, None
+    for kind in ("unsharded", "sharded", "sharded", "unsharded"):
+        reset_launches()
+        if kind == "sharded":
+            (img, n, _), wall = sync_time(lambda: render_pool_sharded_stats(scene, camera, st,
+                                                                            mesh))
+            launches = launches or dict(launch_counts()[family])
+        else:
+            (img, n), wall = sync_time(lambda: render_stats(scene, camera, st))
+        assert torch.isfinite(img).all(), f"{label} {kind}: non-finite image"
+        walls[kind].append(wall)
+        out.setdefault(kind, (img, int(n)))
+    (img_s, n_s), (img_u, n_u) = out["sharded"], out["unsharded"]
+    assert n_s == n_u, f"{label}: rays traced sharded {n_s} vs unsharded {n_u}"
+    err = torch.mean((img_s - img_u) ** 2).item()
+    assert err <= 1e-6, f"{label}: image MSE sharded vs unsharded {err}"
+    assert all(v > 0 for v in launches.values()), f"{label}: {family} kernel not launched"
+    log("parallel", f"{label}: {mesh.size} shard(s) on {[str(d) for d in mesh.devices]}: rays "
+        f"traced {n_s} as unsharded, image MSE {err:.3e}, {family} launches {launches}; "
+        f"walls sharded {walls['sharded']} s, unsharded {walls['unsharded']} s")
+
+
+def parallel_nccl(dev):
+    """(a) A real NCCL group of one process and ``make_mesh()``: the Cornell
+    headline's shape through ``render_pool_sharded_stats``."""
+    import torch.distributed as dist
+
+    from pathtracer_tpu_torch.models.procedural import cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.parallel import distributed
+    from pathtracer_tpu_torch.parallel.mesh import make_mesh
+
+    for attempt in range(2):
+        try:
+            distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+            break
+        except Exception as e:
+            if attempt or not port_taken(str(e)):
+                raise
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = make_mesh()
+        assert mesh.group is not None and mesh.devices == (torch.device("cuda", 0),), mesh
+        scene, camera = cornell_box_scene(device=dev)
+        st = RenderSettings(width=512, height=512, samples_per_pixel=16, max_depth=17,
+                            rr_prob=0.9, scheduler="regen", batch_size=1 << 18)
+        sharded_against_unsharded("NCCL group of 1, Cornell 512x512 spp 16", scene, camera,
+                                  st, mesh, "small")
+        distributed.sync_global_devices("headline")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_one_card(dev):
+    """(b) PAR_SHARDS shards on one card: the band and torus stand-ins'
+    pools, the scan (bit-equal) and a training step's gradients."""
+    from pathtracer_tpu_torch import inverse
+    from pathtracer_tpu_torch.models.procedural import cornell_box_camera, cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.parallel.mesh import make_mesh
+    from pathtracer_tpu_torch.parallel.render import render_sharded
+    from pathtracer_tpu_torch.render import render_stats
+
+    mesh = make_mesh([dev] * PAR_SHARDS)
+    assert mesh.group is None and mesh.size == PAR_SHARDS
+    camera = cornell_box_camera()
+    st = RenderSettings(width=PAR_SIZE, height=PAR_SIZE, samples_per_pixel=PAR_SPP,
+                        max_depth=17, scheduler="regen")
+    sharded_against_unsharded(f"band stand-in {PAR_SIZE}x{PAR_SIZE} spp {PAR_SPP}",
+                              band_scene(dev), camera, st, mesh, "tiled")
+    torus = dict(stand_in_scenes(dev))["torus12580"]
+    sharded_against_unsharded(f"torus stand-in {PAR_SIZE}x{PAR_SIZE} spp {PAR_SPP}", torus,
+                              camera, st, mesh, "shortlist")
+
+    scene, camera = cornell_box_scene(device=dev)
+    st = RenderSettings(width=PAR_SCAN_SIZE, height=PAR_SCAN_SIZE,
+                        samples_per_pixel=PAR_SCAN_SPP, max_depth=17, scheduler="scan")
+    sharded, wall_s = sync_time(lambda: render_sharded(scene, camera, st, mesh))
+    (plain, _), wall_u = sync_time(lambda: render_stats(scene, camera, st))
+    assert torch.equal(sharded, plain), "the sharded scan differs from the unsharded scan"
+    log("parallel", f"scan {PAR_SCAN_SIZE}x{PAR_SCAN_SIZE} spp {PAR_SCAN_SPP} over "
+        f"{PAR_SHARDS} shards: bit-equal to the unsharded scan; walls {wall_s:.4f} s "
+        f"sharded, {wall_u:.4f} s unsharded")
+
+    scene, camera = cornell_box_scene(glossy_tall_box=True, device=dev)
+    st = RenderSettings(**INVERSE_CHECK)
+    frame, target, pix, ids_a, ids_b = step_inputs(scene, camera, st)
+    # The step's rows split into equal shards: 32^2 into PAR_STEP_SHARDS.
+    step_mesh = make_mesh([dev] * PAR_STEP_SHARDS)
+    grads, walls = [], []
+    for m in (None, step_mesh):
+        params = leaf_params(scene)
+        step = inverse.make_train_step(st, torch.optim.SGD(list(params.values()), lr=0.0),
+                                       mesh=m)
+        loss, wall = sync_time(lambda: step(params, scene, frame, target, pix, ids_a, ids_b))
+        grads.append({k: p.grad for k, p in params.items()})
+        walls.append((float(loss), wall))
+    errs = grad_errors(grads[1], grads[0])
+    assert all(e <= PAR_GRAD_TOL for e in errs.values()), errs
+    log("parallel", f"training step {st.width}x{st.height} depth {st.max_depth} over "
+        f"{PAR_STEP_SHARDS} shards: gradients within {errs} of each field's max |g| of the "
+        f"unsharded step; (loss, wall s) unsharded {walls[0]}, sharded {walls[1]}")
+
+
+def parallel_worker(rank: int, n: int, port: int, out: str) -> int:
+    """(c)'s process ``rank`` of ``n``: gloo on the card, ``make_mesh()``
+    (this process's card), the Cornell box at PAR_WORKER through the sharded
+    pool, once to warm up and once timed; writes the timed render's image,
+    rays, iterations, wall and kernel launches to ``out.<rank>.npz``."""
+    import torch.distributed as dist
+
+    from pathtracer_tpu_torch.models.procedural import cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.parallel import distributed
+    from pathtracer_tpu_torch.parallel.mesh import make_mesh
+    from pathtracer_tpu_torch.parallel.render import render_pool_sharded_stats
+
+    distributed.initialize(f"127.0.0.1:{port}", n, rank, backend="gloo")
+    try:
+        mesh = make_mesh()
+        assert mesh.size == n and mesh.devices == (torch.device("cuda", 0),), mesh
+        scene, camera = cornell_box_scene(device="cuda")
+        st = RenderSettings(**PAR_WORKER)
+        render_pool_sharded_stats(scene, camera, st, mesh)  # warm-up: first calls' set-up
+        reset_launches()
+        (img, rays, iters), wall = sync_time(
+            lambda: render_pool_sharded_stats(scene, camera, st, mesh))
+        small = launch_counts()["small"]
+        np.savez(f"{out}.{rank}.npz", image=img.cpu().numpy(), rays=int(rays), iters=iters,
+                 wall=wall, closest=small["closest"], occluded=small["occluded"])
+        distributed.sync_global_devices("done")
+    finally:
+        dist.destroy_process_group()
+    print(f"worker {rank}: OK", flush=True)
+    return 0
+
+
+def parallel_two_processes(dev):
+    """(c) Two processes on the one card over gloo, each with one shard,
+    against the single-process render."""
+    from pathtracer_tpu_torch.models.procedural import cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.render import render_stats
+
+    n = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "proc")
+        t0 = time.perf_counter()
+        for attempt in range(2):
+            port, procs = free_port(), []
+            log_paths = [f"{out}.{rank}.log" for rank in range(n)]
+            try:
+                for rank in range(n):
+                    with open(log_paths[rank], "w") as f:
+                        procs.append(subprocess.Popen(
+                            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+                             str(rank), str(n), str(port), out],
+                            stdout=f, stderr=subprocess.STDOUT))
+                # Until both exit, one fails (the other is then stopped) or time is up.
+                deadline = time.monotonic() + PAR_TIMEOUT
+                while (any(p.poll() is None for p in procs)
+                       and not any(p.poll() for p in procs) and time.monotonic() < deadline):
+                    time.sleep(0.2)
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            logs = [open(path).read() for path in log_paths]
+            if (all(p.returncode == 0 for p in procs) or attempt
+                    or not any(port_taken(text) for text in logs)):
+                break
+        elapsed = time.perf_counter() - t0
+        for rank, p in enumerate(procs):
+            assert p.returncode == 0, f"worker {rank} exited {p.returncode}:\n{logs[rank]}"
+        runs = [dict(np.load(f"{out}.{rank}.npz")) for rank in range(n)]
+    scene, camera = cornell_box_scene(device=dev)
+    (ref, rays), wall = sync_time(lambda: render_stats(scene, camera,
+                                                       RenderSettings(**PAR_WORKER)))
+    ref = ref.cpu().numpy()
+    for rank, r in enumerate(runs):
+        assert int(r["rays"]) == int(rays), (rank, int(r["rays"]), int(rays))
+        np.testing.assert_allclose(r["image"], ref, rtol=3e-5, atol=3e-6,
+                                   err_msg=f"process {rank}")
+        assert r["closest"] > 0 and r["occluded"] > 0, f"process {rank}: kernel not launched"
+    log("parallel", f"two processes over gloo on one card, Cornell {PAR_WORKER['width']}^2 spp "
+        f"{PAR_WORKER['samples_per_pixel']}: rays traced {int(rays)} as one process, images "
+        f"within rtol 3e-5 / atol 3e-6; pool walls {[float(r['wall']) for r in runs]} s, "
+        f"iterations {[int(r['iters']) for r in runs]}, small launches "
+        f"{[(int(r['closest']), int(r['occluded'])) for r in runs]}; single process "
+        f"{wall:.4f} s; both exited 0, {elapsed:.1f} s from start to exit")
+
+
+def parallel_cli(dev):
+    """(d) The CLI with --sharded writes the plain CLI's PNG."""
+    from pathtracer_tpu_torch import cli
+    from pathtracer_tpu_torch.models.procedural import write_cornell_box_files
+    from pathtracer_tpu_torch.utils.image import read_png
+
+    size, spp = EXTRAS_SIZE, EXTRAS_SPP
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = write_cornell_box_files(tmp)
+        imgs = []
+        for extra in ([], ["--sharded"]):
+            png = os.path.join(tmp, f"cli{len(extra)}.png")
+            reset_launches()
+            rc = cli.main([ini, "--size", str(size), "--spp", str(spp), "--out", png, *extra])
+            assert rc == 0, f"cli {extra} returned {rc}"
+            assert all(v > 0 for v in launch_counts()["small"].values()), extra
+            imgs.append(read_png(png))
+    steps = np.abs(np.rint(imgs[0] * 255) - np.rint(imgs[1] * 255))
+    assert imgs[1].shape == (size, size, 3) and imgs[1].mean() > 0.01, imgs[1].shape
+    assert steps.max() <= 1 and (steps > 0).mean() <= 1e-3, (steps.max(), (steps > 0).mean())
+    log("parallel", f"CLI --sharded {size}^2 spp {spp}: its PNG equals the plain CLI's on "
+        f"{(steps == 0).mean():.6f} of the values, the rest one 8-bit step apart")
+
+
+def phase_parallel(dev) -> None:
+    t0 = time.perf_counter()
+    parallel_nccl(dev)
+    parallel_one_card(dev)
+    parallel_two_processes(dev)
+    parallel_cli(dev)
+    log("parallel", f"phase 17 took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     p.add_argument("--band-pairs", type=int, default=0, metavar="N",
                    help="rounds of the paired band measurement after phase 11")
+    p.add_argument("--parallel-worker", nargs=4, metavar=("RANK", "N", "PORT", "OUT"),
+                   help="run as one process of phase 17 (c) and exit")
     args = p.parse_args(argv)
+    if args.parallel_worker:
+        rank, n, port, out = args.parallel_worker
+        return parallel_worker(int(rank), int(n), int(port), out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1885,6 +2171,7 @@ def main(argv=None) -> int:
     phase_bvh(dev)
     phase_cli_extras(dev)
     phase_inverse(dev)
+    phase_parallel(dev)
 
     or_ms, or_err, or_bound = or_ms["band1152"]
     rows = []

@@ -10,6 +10,12 @@ picks the torch device (default ``cuda``). ``--checkpoint PATH`` renders in
 resumable chunks (``render.render_checkpointed``), ``--preview-png N`` writes
 ``<out>.preview_NNNN.png`` every N samples, and ``--serve PORT`` serves the
 accumulating image over localhost HTTP (``utils.preview_server``).
+``--sharded`` shards the render's rays over ``parallel.mesh.make_mesh()`` (every
+card of the process), or over the ``--device`` given alone: the regen
+scheduler through ``parallel.render.render_pool_sharded``, the scan through
+``render_sharded``. Like the JAX CLI it joins no process group, so its shards
+run one after another in this process: the flag gives the same image as the
+plain render and never a faster one (``parallel.render``).
 """
 
 from __future__ import annotations
@@ -69,6 +75,12 @@ def main(argv=None) -> int:
         "printed)",
     )
     p.add_argument(
+        "--sharded", action="store_true",
+        help="shard the rays over every card of the process (over --device "
+        "alone when it is given); the shards run one after another, so this "
+        "never renders faster than without it",
+    )
+    p.add_argument(
         "--light-sampling",
         default="compat",
         choices=("compat", "area"),
@@ -87,10 +99,11 @@ def main(argv=None) -> int:
         help="glossy lobe: reference Phong, or corrected Beckmann microfacet",
     )
     p.add_argument(
-        "--device", default="cuda",
-        help="torch device to render on (cuda, cuda:N or cpu)",
+        "--device", default=None,
+        help="torch device to render on (cuda, cuda:N or cpu; default cuda)",
     )
     args = p.parse_args(argv)
+    device = args.device or "cuda"
 
     from pathtracer_tpu_torch.models.scene import load_scene
     from pathtracer_tpu_torch.ops.tonemap import TONEMAPS
@@ -113,7 +126,7 @@ def main(argv=None) -> int:
         overrides["compat_count_light_pdf"] = False
 
     scene, camera, settings, ini = load_scene(
-        args.ini, scene_root=args.scene_root, device=args.device, **overrides
+        args.ini, scene_root=args.scene_root, device=device, **overrides
     )
     print(
         f"scene: {ini.scene} | {scene.num_tris} tris "
@@ -157,6 +170,16 @@ def main(argv=None) -> int:
         mean = render_checkpointed(
             scene, camera, settings, args.checkpoint, progress_callback=progress
         )
+        img = TONEMAPS[args.tonemap](mean).cpu().numpy()
+    elif args.sharded:
+        from pathtracer_tpu_torch.parallel.mesh import make_mesh
+        from pathtracer_tpu_torch.parallel.render import render_pool_sharded, render_sharded
+
+        mesh = make_mesh(None if args.device is None else [args.device])
+        if settings.scheduler == "regen":
+            mean = render_pool_sharded(scene, camera, settings, mesh)
+        else:
+            mean = render_sharded(scene, camera, settings, mesh, progress_callback=progress)
         img = TONEMAPS[args.tonemap](mean).cpu().numpy()
     else:
         preview_every = args.preview_png or (1 if server is not None else 0)

@@ -21,9 +21,9 @@ half the gradient at an exact tie (``ops.tonemap.maximum`` and ``clip``), as
 ``jnp.maximum`` and ``jnp.clip`` do; ``torch.clamp`` would pass all of it.
 
 The optimizer is a ``torch.optim`` one (optax is absent on the card): by
-default Adam with ``cosine_decay_schedule``, optax's cosine decay. The
-sharded step (``mesh=``) is not ported yet: it comes with ``parallel/``
-(ROADMAP queue 1, item 7).
+default Adam with ``cosine_decay_schedule``, optax's cosine decay. With a
+mesh (``parallel.mesh``) the step is data-parallel: each shard differentiates
+its slice of the rows, and the gradients sum once over shards and processes.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.camera_rays import generate_rays, ray_frame_tensors
 from pathtracer_tpu_torch.ops.integrator import radiance_batch
 from pathtracer_tpu_torch.ops.tonemap import maximum, tonemap_reference
+from pathtracer_tpu_torch.parallel.distributed import sync_global_devices
+from pathtracer_tpu_torch.parallel.mesh import all_reduce, replicas, shard_rows
 
 # Differentiable material arrays. ``mat_Ns`` (Phong roughness exponent) is
 # optimizable too; fit it with ``compat_count_light_pdf=False`` (or the
@@ -56,12 +58,6 @@ CLIPS = {
     "mat_Ke": (0.0, None),
     "mat_Ns": (1.0, 499.0),
 }
-
-# The ROADMAP item that brings the sharded step.
-_MESH_NOT_PORTED = (
-    "make_train_step(mesh=...): the sharded training step comes with the port "
-    "of parallel/ (ROADMAP queue 1, item 7)"
-)
 
 
 def material_params(scene, fields=PARAM_FIELDS) -> dict:
@@ -202,6 +198,25 @@ def loss_and_grads(params, scene, settings, frame, target_rows, pixel_ids, ids_a
     return loss.detach(), dict(zip(params, grads))
 
 
+def _sharded_loss_and_grads(params, scene, settings, frame, target_rows, pixel_ids,
+                            ids_a, ids_b, loss_space, mesh):
+    """``loss_and_grads`` over the mesh's shards: the mean of the shard
+    losses and of the shard gradients, on the params' devices."""
+    slices = [shard_rows(x, mesh) for x in (target_rows, pixel_ids, ids_a, ids_b)]
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    loss = torch.zeros((), device=next(iter(grads.values())).device)
+    for i, (sc, fr) in enumerate(replicas(scene, frame, mesh)):
+        dev = sc.device
+        local = {k: p.detach().to(dev).requires_grad_(True) for k, p in params.items()}
+        rows = [x[i].to(dev) for x in slices]
+        shard_loss, shard_grads = loss_and_grads(local, sc, settings, fr, *rows, loss_space)
+        loss += shard_loss.to(loss.device)
+        for k, g in shard_grads.items():
+            grads[k] += g.to(grads[k].device)
+    loss = all_reduce(loss, mesh) / mesh.size
+    return loss, {k: all_reduce(g, mesh) / mesh.size for k, g in grads.items()}
+
+
 def make_train_step(settings, optimizer, mesh=None, loss_space="radiance"):
     """A training step over material params.
 
@@ -216,18 +231,24 @@ def make_train_step(settings, optimizer, mesh=None, loss_space="radiance"):
     pre-tonemap radiance; "display" fits through the reference tonemap
     against display-space targets (real PNGs).
 
-    ``mesh`` (the data-parallel step) raises ``NotImplementedError``: it
-    comes with the port of ``parallel/``.
+    With ``mesh`` (``parallel.mesh.Mesh``) the step is data-parallel: the
+    rows split into ``mesh.size`` equal slices (a row count that does not
+    divide raises ``ValueError``), each shard computes ``loss_and_grads`` on
+    its slice with a copy of the params on its device, the shard gradients
+    sum once (over this process's shards, then ``all_reduce`` over the
+    processes) and divide by ``mesh.size``, as the loss does: the mean of the
+    shard means. The update then runs once on the params, which every
+    process holds alike.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
     if loss_space not in _OBJECTIVES:
         raise ValueError(f"unknown loss_space {loss_space!r}")
 
     def train_step(params, scene, frame, target_rows, pixel_ids, sample_ids_a,
                    sample_ids_b):
-        loss, grads = loss_and_grads(params, scene, settings, frame, target_rows,
-                                     pixel_ids, sample_ids_a, sample_ids_b, loss_space)
+        args = (params, scene, settings, frame, target_rows, pixel_ids, sample_ids_a,
+                sample_ids_b, loss_space)
+        loss, grads = (loss_and_grads(*args) if mesh is None
+                       else _sharded_loss_and_grads(*args, mesh=mesh))
         for k, p in params.items():
             p.grad = grads[k]
         optimizer.step()
@@ -273,13 +294,17 @@ def recover_materials(
     ``loss_space="display"``, a display-space [0, 1] image (e.g. a decoded
     ground-truth PNG) fit through the reference tonemap. Returns (recovered
     params, detached tensors on the scene's device, list of losses).
-    BASELINE.json config 5.
+    BASELINE.json config 5. ``mesh``: each step runs data-parallel over it
+    (``make_train_step``); the pixel count times ``samples_per_step`` must
+    divide by ``mesh.size``.
 
     ``checkpoint_path``: persist (params, optimizer state, step) every
     ``checkpoint_every`` steps via ``utils.checkpoint.save_pytree`` and
     resume from it when present. Sample ids derive from the step index and
     the learning rate from the step's place in the schedule, so a resumed
-    run repeats the straight run's arithmetic.
+    run repeats the straight run's arithmetic. Over a mesh of several
+    processes, whose params are the same after every step, process 0 writes
+    the file and the others wait for it.
 
     ``samples_per_step``: paths per pixel per wave per step. Adam normalizes
     even noise-dominated gradients to full lr-sized steps, so a parameter
@@ -298,8 +323,6 @@ def recover_materials(
     """
     from pathtracer_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
     dev = scene.device
     init = init_params or material_params(scene, fields)
     params = {
@@ -328,7 +351,7 @@ def recover_materials(
             {"state": state["opt"], "param_groups": opt.state_dict()["param_groups"]}
         )
         start = state["step"]
-    train_step = make_train_step(settings, opt, loss_space=loss_space)
+    train_step = make_train_step(settings, opt, mesh=mesh, loss_space=loss_space)
 
     frame = ray_frame_tensors(camera, settings.width, settings.height, dev)
     n_pixels = settings.width * settings.height
@@ -358,10 +381,13 @@ def recover_materials(
         if checkpoint_path and (
             (step_idx + 1) % checkpoint_every == 0 or step_idx + 1 == end
         ):
-            save_pytree(
-                checkpoint_path,
-                {"params": params, "opt": opt.state_dict()["state"], "step": step_idx + 1},
-            )
+            if mesh is None or mesh.rank == 0:
+                save_pytree(
+                    checkpoint_path,
+                    {"params": params, "opt": opt.state_dict()["state"], "step": step_idx + 1},
+                )
+            if mesh is not None:
+                sync_global_devices("checkpoint")
     return {k: v.detach() for k, v in params.items()}, losses
 
 

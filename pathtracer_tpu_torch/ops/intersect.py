@@ -439,3 +439,8 @@ def closest_hit(scene, o, d, settings):
         ),
         mat,
     )
+
+
+def intersect(scene, o, d, settings) -> Hit:
+    """Scene closest hit: triangles and analytic primitives, merged by t."""
+    return closest_hit(scene, o, d, settings)[0]

@@ -39,6 +39,8 @@ from pathtracer_tpu_torch.models.pack import pack_scene
 from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
 from pathtracer_tpu_torch.ops import intersect as tint
 from pathtracer_tpu_torch.ops.bvh_traverse import closest_tri_bvh, closest_tri_bvh_stats
+# The JAX side packs its scenes with its native BVH builder: load it first.
+from test_torch_frontend import jax_native_library  # noqa: F401 (autouse)
 
 SCENES = ["cornell", 17, 200, 1500]
 N_RAYS = 512

@@ -22,6 +22,8 @@ from pathtracer_tpu_torch.utils.checkpoint import (
     render_fingerprint,
     save_render_state,
 )
+# The JAX side packs its scenes with its native BVH builder: load it first.
+from test_torch_frontend import jax_native_library  # noqa: F401 (autouse)
 
 SETTINGS = dict(width=16, height=16, max_depth=4)
 

@@ -8,6 +8,10 @@ BVH builder and OBJ parser gives the JAX package's arrays; the scene
 constructors default to the CUDA device and raise without one; and the port
 imports no JAX and nothing of the JAX package, even after building a scene
 from files.
+
+``jax_native_library`` (autouse here, imported by the other test files whose
+JAX side packs a scene) makes sure the JAX package's native BVH builder is
+loaded before any comparison: its Python fallback builds other BVH arrays.
 """
 
 import dataclasses
@@ -15,6 +19,7 @@ import inspect
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -37,6 +42,28 @@ from pathtracer_tpu_torch.models.obj import ObjMaterial
 from pathtracer_tpu_torch.models.obj import load_obj
 from pathtracer_tpu_torch.models.scenegraph import load_scenegraph
 from pathtracer_tpu_torch.utils.image import read_png, write_png
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library():
+    """The JAX package's native library, loaded.
+
+    Its loader compiles the library in place (no temporary file and rename)
+    and tries once per process. The library is not in the tree, so test
+    workers in a fresh checkout race to build it, and a worker whose
+    ``ctypes.CDLL`` reads a half-written file keeps the Python fallback.
+    Retry the load, for up to 60 s, until the other worker's ``g++`` is done.
+    """
+    from pathtracer_tpu import native as jnative
+
+    deadline = time.monotonic() + 60.0
+    while jnative.get_lib() is None:
+        if time.monotonic() > deadline:
+            pytest.fail("the JAX package's native library did not load within 60 s "
+                        "(pathtracer_tpu/native builds it in place; see its stderr)")
+        time.sleep(0.5)
+        jnative._tried = False
+    return jnative.get_lib()
 
 
 def assert_same(a, b, path="root"):
@@ -181,9 +208,10 @@ def test_png_writer_matches_pil(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every port module (the CLI and inverse rendering among them), then a
-    scene loaded from written files (the OBJ parser and the BVH builder run):
-    no JAX, no optax and no module of the JAX package is imported."""
+    """Every port module (the CLI, inverse rendering and parallel/ among
+    them), then a scene loaded from written files (the OBJ parser and the BVH
+    builder run): no JAX, no optax and no module of the JAX package is
+    imported."""
     code = (
         "import importlib, pkgutil, sys, tempfile\n"
         "import pathtracer_tpu_torch as p\n"
@@ -199,6 +227,8 @@ def test_port_imports_no_jax():
         "             ('jax', 'jaxlib', 'flax', 'optax', 'pathtracer_tpu'))\n"
         "assert 'pathtracer_tpu_torch.cli' in sys.modules\n"
         "assert 'pathtracer_tpu_torch.inverse' in sys.modules\n"
+        "assert 'pathtracer_tpu_torch.parallel.render' in sys.modules\n"
+        "assert 'pathtracer_tpu_torch.parallel.distributed' in sys.modules\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

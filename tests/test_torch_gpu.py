@@ -11,7 +11,11 @@ equal; renders as in chip_smoke.py phase 5. The threefry generator's bits on
 the card equal the CPU port's; the BVH oracle's t equals brute's. Inverse
 rendering's paired step: card vs CPU within 1e-3 of each field's largest
 |g|, a kernel route vs its plain route within 1e-4 (only the summation order
-of the index backward differs), as chip_smoke.py phase 16.
+of the index backward differs), as chip_smoke.py phase 16. Three shards on
+one card (``parallel``): the pool's rays equal and its image within rtol
+3e-5 / atol 3e-6 of the unsharded pool's, the scan bit-equal, a training
+step's gradients within 1e-5 of each field's largest |g|, as chip_smoke.py
+phase 17.
 """
 
 import dataclasses
@@ -335,3 +339,62 @@ def test_inverse_paired_step_kernel_route_equals_plain_route(cuda, route):
     _assert_grads_close(grads, grads_p, 1e-4)
     assert all(v > 0 for v in rose[family].values()), rose
     assert not any(v for c in rose_p.values() for v in c.values()), rose_p
+
+
+def _card_mesh(cuda):
+    from pathtracer_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([cuda] * 3)
+
+
+@pytest.mark.parametrize("mesh,family", [(None, "small"), ((30, 18), "tiled")])
+def test_sharded_pool_on_one_card_equals_unsharded(cuda, mesh, family):
+    """Three shards of the pool on one card: equal rays traced, the image
+    within rtol 3e-5 / atol 3e-6 (summation order), through the kernel."""
+    from pathtracer_tpu_torch.parallel.render import render_pool_sharded_stats
+
+    m = procedural.cornell_box_mesh() if mesh is None else procedural.torus_cornell_mesh(*mesh)
+    scene = scene_from_packed(pack_scene(m), cuda)
+    camera = procedural.cornell_box_camera()
+    st = RenderSettings(width=64, height=64, samples_per_pixel=4, scheduler="regen")
+    counts = {"small": small.launches, "tiled": tiled.launches}[family]
+    before = dict(counts)
+    img, n, _ = render_pool_sharded_stats(scene, camera, st, _card_mesh(cuda))
+    assert all(counts[k] > before[k] for k in counts), counts
+    ref, n_ref = render_stats(scene, camera, st)
+    assert int(n) == int(n_ref)
+    torch.testing.assert_close(img, ref, rtol=3e-5, atol=3e-6)
+
+
+def test_sharded_scan_on_one_card_bit_equal(cuda):
+    from pathtracer_tpu_torch.parallel.render import render_sharded
+
+    scene, camera = procedural.cornell_box_scene(device=cuda)
+    st = RenderSettings(width=64, height=64, samples_per_pixel=2, scheduler="scan")
+    assert torch.equal(render_sharded(scene, camera, st, _card_mesh(cuda)),
+                       render_stats(scene, camera, st)[0])
+
+
+def test_sharded_train_step_on_one_card_equals_unsharded(cuda):
+    """A training step over three shards of one card: the gradients it
+    leaves on the params (SGD at lr 0) within 1e-5 of each field's largest
+    |g| of the unsharded step's."""
+    from pathtracer_tpu_torch import inverse
+    from pathtracer_tpu_torch.ops.camera_rays import ray_frame_tensors
+
+    scene, camera = procedural.cornell_box_scene(glossy_tall_box=True, device=cuda)
+    st = RenderSettings(width=24, height=24, max_depth=4, scheduler="scan")
+    n = st.width * st.height
+    target = torch.as_tensor(np.random.default_rng(0).uniform(0.0, 0.6, (n, 3)),
+                             dtype=torch.float32, device=cuda)
+    pix = torch.arange(n, device=cuda)
+    grads = []
+    for mesh in (None, _card_mesh(cuda)):
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in inverse.material_params(scene).items()}
+        step = inverse.make_train_step(st, torch.optim.SGD(list(params.values()), lr=0.0),
+                                       mesh=mesh)
+        step(params, scene, ray_frame_tensors(camera, st.width, st.height, cuda), target,
+             pix, torch.zeros_like(pix), torch.ones_like(pix))
+        grads.append({k: p.grad for k, p in params.items()})
+    _assert_grads_close(grads[1], grads[0], 1e-5)

@@ -251,6 +251,25 @@ def test_closest_hit_and_occlusion_match_jax_brute(scenes, rays, name, kw,
     assert small.launches == {"closest": 0, "occluded": 0}
 
 
+@pytest.mark.parametrize("name", ["cornell36", "sphere"])
+def test_intersect_matches_jax(scenes, rays, name):
+    """``intersect``, the public closest hit without materials, against the
+    JAX package's (its brute sweep)."""
+    jscene, scene = scenes[name]
+    o, d = rays
+    ref = jint.intersect(jscene, jnp.asarray(o), jnp.asarray(d), JaxSettings())
+    got = tint.intersect(scene, torch.as_tensor(o), torch.as_tensor(d), RenderSettings())
+    _close_t(got.t.numpy(), ref.t, _rtol(name))
+    for field in ("hit", "tri_id", "mat_id"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(ref, field)), err_msg=field)
+    n_atol = 1e-4 if name == "sphere" else 1e-7
+    np.testing.assert_allclose(got.normal.numpy(), np.asarray(ref.normal), rtol=1e-6,
+                               atol=n_atol)
+    np.testing.assert_allclose(got.point.numpy(), np.asarray(ref.point), rtol=0,
+                               atol=1e-4 if _rtol(name) else 1e-6)
+
+
 def _stub(device: str, num_tris: int, padded: int):
     return types.SimpleNamespace(device=torch.device(device), num_tris=num_tris,
                                  padded_tris=padded)

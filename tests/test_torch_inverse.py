@@ -418,19 +418,6 @@ def test_save_load_pytree_round_trip_and_mismatch(tmp_path):
             load_pytree(path, like)
 
 
-def test_mesh_raises():
-    """The sharded step is not ported yet: a mesh raises rather than being
-    ignored."""
-    _, scene, camera = _scenes(glossy=False)
-    st = RenderSettings(**SIZE)
-    opt = torch.optim.Adam(list(_leaf_params(scene).values()), lr=0.1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tinv.make_train_step(st, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tinv.recover_materials(scene, camera, st, np.zeros((16, 16, 3)), steps=1,
-                               mesh=object())
-
-
 def test_recover_from_ground_truth(tmp_path):
     """Configuration 5's entry point on a PNG the test writes: the Cornell
     files, a 32^2 spp 16 render of the true scene tonemapped into a PNG, then

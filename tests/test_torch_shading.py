@@ -20,6 +20,8 @@ from pathtracer_tpu_torch.ops import bsdf as tb
 from pathtracer_tpu_torch.ops import camera_rays as tcam
 from pathtracer_tpu_torch.ops import lights as tl
 from pathtracer_tpu_torch.ops import tonemap as tt
+# The JAX side packs its scenes with its native BVH builder: load it first.
+from test_torch_frontend import jax_native_library  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 B = 1024
