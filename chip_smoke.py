@@ -130,11 +130,26 @@ non-zero):
                 shards: 1,024 rows) with gradients within 1e-5 of each field's
                 max |g| of the unsharded step's. (c) Two processes on the card
                 over gloo (NCCL refuses two ranks on one GPU), this script
-                run again with ``--parallel-worker``, one shard each: Cornell
+                run again with ``--parallel-worker`` by
+                ``parallel.launch.run_workers``, one shard each: Cornell
                 128^2, spp 8, depth 17 equal to the single-process render
                 within rtol 3e-5 / atol 3e-6, with equal rays; both exit 0.
                 (d) The CLI's ``--sharded`` at 128^2, spp 8 writes the plain
                 CLI's PNG (up to one 8-bit step on at most 0.1% of values).
+18. bench    -- ``bench_torch.py`` in subprocesses, as a benchmark runs it:
+                the Cornell headline (512^2, spp 16, regen: 29,723,280 rays
+                in 76 pool iterations), the same with ``--scheduler scan``
+                (rays equal to the sum of its waves' counts, traced here),
+                the torus and band stand-ins at 512^2, spp 4 (7,613,742 and
+                7,616,286 rays in 29 iterations) and the perf canary's spp 8
+                run (14,871,501 in 45), each having launched its cell's
+                kernel and no other; walls, median and Mray/s of each. Then
+                ``--sharded`` over two workers sharing the card (gloo) at
+                128^2, spp 8: the one-process run's rays; walls and
+                efficiency. Then the CLI's ``--sharded --device cuda:0
+                --device cuda:0`` (two workers) against the plain CLI at
+                128^2, spp 8: the scan's PNG equal on every value, the
+                pool's within one 8-bit step on at most 0.1% of them.
 
 ``--band-pairs N`` adds N rounds of phase 11's renders with "pallas",
 "pallas" with the pool's ray sort on, "cluster", "shortlist_pallas" and
@@ -166,6 +181,8 @@ import urllib.request
 import numpy as np
 import torch
 
+from pathtracer_tpu_torch.kernels import launch_counts, reset_launches
+
 N_RAYS = 1 << 18
 TIMED_LAUNCHES = 20
 TIMED_PLAIN = 3  # the shortlist phase's plain twin and brute sweep are slow
@@ -183,26 +200,6 @@ ROUTE_SETTINGS = {SORTED_PALLAS: {"intersector": "pallas", "ray_sort": "on"}}
 # Phase 7's scene above the earlier 415-cluster cap, and its batch.
 LARGEST_MESH = (256, 128)  # torus_cornell_mesh: 65,572 triangles, 516 clusters
 LARGEST_RAYS = (1 << 16) - 1
-
-
-def launch_counts() -> dict:
-    """Every kernel's launch counts by family."""
-    from pathtracer_tpu_torch.ops import (
-        intersect_cluster,
-        intersect_shortlist_kernel,
-        intersect_small,
-        intersect_tiled,
-    )
-
-    return {"small": intersect_small.launches, "shortlist": intersect_shortlist_kernel.launches,
-            "tiled": intersect_tiled.launches, "cluster": intersect_cluster.launches}
-
-
-def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for counts in launch_counts().values():
-        for k in counts:
-            counts[k] = 0
 
 
 def log(phase: str, msg: str) -> None:
@@ -1876,20 +1873,6 @@ PAR_GRAD_TOL = 1e-5  # of each field's largest |g|: only summation order differs
 PAR_TIMEOUT = 300  # seconds for each worker of (c)
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def port_taken(text: str) -> bool:
-    """Whether a rendezvous failed because another process took the port
-    between ``free_port`` and the listen (such a run is repeated once)."""
-    return "EADDRINUSE" in text or "address already in use" in text
-
-
 def sharded_against_unsharded(label, scene, camera, st, mesh, family):
     """The pool sharded over ``mesh`` against the unsharded pool, in turns
     (unsharded, sharded, sharded, unsharded): equal rays traced, image MSE
@@ -1927,6 +1910,7 @@ def parallel_nccl(dev):
     from pathtracer_tpu_torch.models.procedural import cornell_box_scene
     from pathtracer_tpu_torch.models.scene import RenderSettings
     from pathtracer_tpu_torch.parallel import distributed
+    from pathtracer_tpu_torch.parallel.launch import free_port, port_taken
     from pathtracer_tpu_torch.parallel.mesh import make_mesh
 
     for attempt in range(2):
@@ -2001,8 +1985,9 @@ def parallel_one_card(dev):
         f"unsharded step; (loss, wall s) unsharded {walls[0]}, sharded {walls[1]}")
 
 
-def parallel_worker(rank: int, n: int, port: int, out: str) -> int:
-    """(c)'s process ``rank`` of ``n``: gloo on the card, ``make_mesh()``
+def parallel_worker(out: str) -> int:
+    """(c)'s worker, started by ``parallel.launch.run_workers`` (its rank, the
+    group and gloo come from the ``PT_TPU_*`` variables): ``make_mesh()``
     (this process's card), the Cornell box at PAR_WORKER through the sharded
     pool, once to warm up and once timed; writes the timed render's image,
     rays, iterations, wall and kernel launches to ``out.<rank>.npz``."""
@@ -2014,8 +1999,10 @@ def parallel_worker(rank: int, n: int, port: int, out: str) -> int:
     from pathtracer_tpu_torch.parallel.mesh import make_mesh
     from pathtracer_tpu_torch.parallel.render import render_pool_sharded_stats
 
-    distributed.initialize(f"127.0.0.1:{port}", n, rank, backend="gloo")
+    distributed.initialize()
+    rank, n = distributed.process_index(), dist.get_world_size()
     try:
+        assert dist.get_backend() == "gloo", dist.get_backend()
         mesh = make_mesh()
         assert mesh.size == n and mesh.devices == (torch.device("cuda", 0),), mesh
         scene, camera = cornell_box_scene(device="cuda")
@@ -2039,39 +2026,17 @@ def parallel_two_processes(dev):
     against the single-process render."""
     from pathtracer_tpu_torch.models.procedural import cornell_box_scene
     from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.parallel.launch import run_workers
     from pathtracer_tpu_torch.render import render_stats
 
     n = 2
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "proc")
         t0 = time.perf_counter()
-        for attempt in range(2):
-            port, procs = free_port(), []
-            log_paths = [f"{out}.{rank}.log" for rank in range(n)]
-            try:
-                for rank in range(n):
-                    with open(log_paths[rank], "w") as f:
-                        procs.append(subprocess.Popen(
-                            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
-                             str(rank), str(n), str(port), out],
-                            stdout=f, stderr=subprocess.STDOUT))
-                # Until both exit, one fails (the other is then stopped) or time is up.
-                deadline = time.monotonic() + PAR_TIMEOUT
-                while (any(p.poll() is None for p in procs)
-                       and not any(p.poll() for p in procs) and time.monotonic() < deadline):
-                    time.sleep(0.2)
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            logs = [open(path).read() for path in log_paths]
-            if (all(p.returncode == 0 for p in procs) or attempt
-                    or not any(port_taken(text) for text in logs)):
-                break
+        rc = run_workers([os.path.abspath(__file__), "--parallel-worker", out], ["cuda:0"] * n,
+                         timeout=PAR_TIMEOUT)
         elapsed = time.perf_counter() - t0
-        for rank, p in enumerate(procs):
-            assert p.returncode == 0, f"worker {rank} exited {p.returncode}:\n{logs[rank]}"
+        assert rc == 0, f"a worker of (c) exited {rc}"
         runs = [dict(np.load(f"{out}.{rank}.npz")) for rank in range(n)]
     scene, camera = cornell_box_scene(device=dev)
     (ref, rays), wall = sync_time(lambda: render_stats(scene, camera,
@@ -2123,16 +2088,129 @@ def phase_parallel(dev) -> None:
     log("parallel", f"phase 17 took {time.perf_counter() - t0:.1f} s")
 
 
+BENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_torch.py")
+BENCH_TIMEOUT = 600  # seconds for one bench_torch.py run
+# (rays, pool iterations) of the bench's cells, as phases 6, 9 and 11 trace them.
+BENCH_CELLS = {
+    "headline": (["--spp", "16"], "small", (29_723_280, 76)),
+    "scan": (["--spp", "16", "--scheduler", "scan"], "small", None),
+    "torus": (["--scene", "torus", "--spp", "4"], "shortlist", (7_613_742, 29)),
+    "band": (["--scene", "band", "--spp", "4"], "tiled", (7_616_286, 29)),
+    # tests/test_torch_perf_canary.py's run
+    "canary": (["--spp", "8"], "small", (14_871_501, 45)),
+}
+BENCH_SHARDED = ["--size", "128", "--spp", "8", "--device", "cuda:0", "--device", "cuda:0",
+                 "--sharded"]
+
+
+def run_bench(*argv) -> tuple:
+    """``bench_torch.py argv`` in a subprocess -> (its JSON line, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, BENCH, *argv], capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    assert proc.returncode == 0, (f"bench_torch.py {' '.join(argv)} exited {proc.returncode}:\n"
+                                  f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def bench_text(out: dict) -> str:
+    return (f"walls {out['walls_s']} s, median {out['wall_median_s']:.4f} s, best "
+            f"{out['wall_s']:.4f} s: {out['value'] / 1e6:.2f} Mray/s at the best wall, "
+            f"{out['rays'] / out['wall_median_s'] / 1e6:.2f} at the median; rays {out['rays']} "
+            f"in {out['iterations']} iterations, launches {out['launches']}")
+
+
+def scan_rays(dev, size: int = 512, spp: int = 16) -> int:
+    """The scan headline's rays: the sum of its waves' counts, traced here."""
+    from pathtracer_tpu_torch.models.procedural import cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.ops.camera_rays import generate_rays, ray_frame_tensors
+    from pathtracer_tpu_torch.ops.integrator import radiance_batch_stats
+    from pathtracer_tpu_torch.ops.rng import pixel_jitter_hash
+
+    scene, camera = cornell_box_scene(device=dev)
+    st = RenderSettings(width=size, height=size, samples_per_pixel=spp, scheduler="scan")
+    frame = ray_frame_tensors(camera, size, size, dev)
+    pix = torch.arange(size * size, device=dev)
+    counts = []
+    for s in range(spp):
+        ids = torch.full_like(pix, s)
+        o, d = generate_rays(frame, size, size, pix, pixel_jitter_hash(pix, ids))
+        counts.append(radiance_batch_stats(scene, st, o, d, pix, ids)[1])
+    return int(torch.stack(counts).sum())
+
+
+def bench_cli_two_workers(dev) -> None:
+    """The CLI's ``--sharded`` over two workers on the card (gloo) against the
+    plain CLI: the scan's PNG equal on every value, the pool's within one
+    8-bit step on at most 0.1% of the values."""
+    from pathtracer_tpu_torch import cli
+    from pathtracer_tpu_torch.models.procedural import write_cornell_box_files
+    from pathtracer_tpu_torch.utils.image import read_png
+
+    size, spp = EXTRAS_SIZE, EXTRAS_SPP
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = write_cornell_box_files(tmp)
+        for scheduler in ("regen", "scan"):
+            imgs, walls = [], []
+            for extra in ([], ["--device", "cuda:0", "--device", "cuda:0", "--sharded"]):
+                png = os.path.join(tmp, f"{scheduler}{len(extra)}.png")
+                t0 = time.perf_counter()
+                rc = cli.main([ini, "--size", str(size), "--spp", str(spp), "--scheduler",
+                               scheduler, "--out", png, *extra])
+                walls.append(time.perf_counter() - t0)
+                assert rc == 0, f"cli {scheduler} {extra} returned {rc}"
+                imgs.append(read_png(png))
+            steps = np.abs(np.rint(imgs[0] * 255) - np.rint(imgs[1] * 255))
+            assert imgs[1].mean() > 0.01, imgs[1].mean()
+            assert steps.max() <= (1 if scheduler == "regen" else 0), (scheduler, steps.max())
+            assert (steps > 0).mean() <= 1e-3, (scheduler, (steps > 0).mean())
+            log("bench", f"CLI --sharded over two workers on the card, {scheduler} {size}^2 spp "
+                f"{spp}: its PNG equals the plain CLI's on {(steps == 0).mean():.6f} of the "
+                f"values (max step {steps.max():.0f}); calls {walls[0]:.1f} s plain, "
+                f"{walls[1]:.1f} s with the two workers' start-up")
+
+
+def phase_bench(dev, smi: str) -> None:
+    """18. bench_torch.py as a benchmark runs it: each cell's exact rays and
+    iterations, the kernel it launched, walls and Mray/s; two workers
+    sharing the card for --sharded; the CLI's two-worker --sharded."""
+    t0 = time.perf_counter()
+    for label, (argv, family, expect) in BENCH_CELLS.items():
+        out, took = run_bench("--size", "512", *argv, "--no-sharded")
+        assert out["device"] == torch.cuda.get_device_name(0), out["device"]
+        assert list(out["launches"]) == [family], (label, out["launches"])
+        assert all(v > 0 for v in out["launches"][family].values()), (label, out["launches"])
+        if expect is None:
+            expect = (scan_rays(dev), None)
+        if expect[0] is not None:
+            assert out["rays"] == expect[0], (label, out["rays"], expect[0])
+        if expect[1] is not None:
+            assert out["iterations"] == expect[1], (label, out["iterations"], expect[1])
+        log("bench", f"{label}: {out['workload']} {out['scheduler']}: {bench_text(out)}; "
+            f"{took:.1f} s in all; {out['nvidia_smi']}")
+    out, took = run_bench(*BENCH_SHARDED)
+    sh = out["sharded"]
+    assert sh["n_devices"] == 2 and sh["rays"] == out["rays"], (sh, out["rays"])
+    log("bench", f"--sharded over two workers on cuda:0 (gloo), {out['workload']}: rays "
+        f"{sh['rays']} as the one-process headline's; worker walls {sh['walls_s']} s, "
+        f"{sh['rays_per_sec'] / 1e6:.2f} Mray/s in all; one process on the same card "
+        f"{bench_text(out)}; one device on ceil(spp / 2) samples "
+        f"{sh['single_device_walls_s']} s; efficiency {sh['efficiency']:.4f}; {took:.1f} s "
+        f"in all; {smi}")
+    bench_cli_two_workers(dev)
+    log("bench", f"phase 18 took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     p.add_argument("--band-pairs", type=int, default=0, metavar="N",
                    help="rounds of the paired band measurement after phase 11")
-    p.add_argument("--parallel-worker", nargs=4, metavar=("RANK", "N", "PORT", "OUT"),
+    p.add_argument("--parallel-worker", metavar="OUT",
                    help="run as one process of phase 17 (c) and exit")
     args = p.parse_args(argv)
     if args.parallel_worker:
-        rank, n, port, out = args.parallel_worker
-        return parallel_worker(int(rank), int(n), int(port), out)
+        return parallel_worker(args.parallel_worker)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2172,6 +2250,7 @@ def main(argv=None) -> int:
     phase_cli_extras(dev)
     phase_inverse(dev)
     phase_parallel(dev)
+    phase_bench(dev, smi)
 
     or_ms, or_err, or_bound = or_ms["band1152"]
     rows = []

@@ -10,12 +10,16 @@ picks the torch device (default ``cuda``). ``--checkpoint PATH`` renders in
 resumable chunks (``render.render_checkpointed``), ``--preview-png N`` writes
 ``<out>.preview_NNNN.png`` every N samples, and ``--serve PORT`` serves the
 accumulating image over localhost HTTP (``utils.preview_server``).
-``--sharded`` shards the render's rays over ``parallel.mesh.make_mesh()`` (every
-card of the process), or over the ``--device`` given alone: the regen
+``--sharded`` shards the render's rays over every visible card, or over the
+devices ``--device`` names (it may then be given more than once): the regen
 scheduler through ``parallel.render.render_pool_sharded``, the scan through
-``render_sharded``. Like the JAX CLI it joins no process group, so its shards
-run one after another in this process: the flag gives the same image as the
-plain render and never a faster one (``parallel.render``).
+``render_sharded``. Over one device it renders in this process. Over several
+it starts one worker process per device (``parallel.launch.run_workers``),
+joined by ``torch.distributed`` (NCCL between cards, gloo where two workers
+share a card or on the CPU), so the devices work at the same time; each
+worker renders its slice of the rays, process 0 writes the PNG, and a worker
+that fails makes the CLI exit non-zero. A process started with the
+``PT_TPU_*`` variables of ``parallel.distributed`` set is one such worker.
 """
 
 from __future__ import annotations
@@ -76,9 +80,10 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--sharded", action="store_true",
-        help="shard the rays over every card of the process (over --device "
-        "alone when it is given); the shards run one after another, so this "
-        "never renders faster than without it",
+        help="shard the rays over every visible card, or over the --device "
+        "entries given; several devices render at the same time, one worker "
+        "process each (two workers may share a card: --device cuda:0 "
+        "--device cuda:0)",
     )
     p.add_argument(
         "--light-sampling",
@@ -99,12 +104,41 @@ def main(argv=None) -> int:
         help="glossy lobe: reference Phong, or corrected Beckmann microfacet",
     )
     p.add_argument(
-        "--device", default=None,
-        help="torch device to render on (cuda, cuda:N or cpu; default cuda)",
+        "--device", action="append", default=None,
+        help="torch device to render on (cuda, cuda:N or cpu; default cuda); "
+        "with --sharded it may be given once per shard",
     )
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
-    device = args.device or "cuda"
+    group = False
+    if args.sharded:
+        from pathtracer_tpu_torch.parallel import distributed, launch
 
+        distributed.initialize()  # a worker of run_workers joins its group here
+        group = distributed.is_initialized()
+        devices = [launch.worker_device()] if group else args.device or launch.visible_cards()
+        if (group or len(devices) > 1) and (args.checkpoint or args.preview_png
+                                            or args.serve is not None):
+            p.error("--checkpoint, --preview-png and --serve render on one device")
+        if len(devices) > 1:
+            return launch.run_workers(["-m", "pathtracer_tpu_torch.cli", *argv], devices)
+        device = devices[0]
+    elif args.device and len(args.device) > 1:
+        p.error("--device is given more than once only with --sharded")
+    else:
+        device = args.device[0] if args.device else "cuda"
+    try:
+        return _render(args, device, group)
+    finally:
+        if group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _render(args, device: str, group: bool) -> int:
+    """Render ``args``' scene on ``device`` and write the PNG (in a group of
+    workers: this worker's shard, and process 0 writes)."""
     from pathtracer_tpu_torch.models.scene import load_scene
     from pathtracer_tpu_torch.ops.tonemap import TONEMAPS
     from pathtracer_tpu_torch.render import render_checkpointed, render_image
@@ -165,6 +199,10 @@ def main(argv=None) -> int:
         if server is not None:
             server.update(to_uint8(img), done_spp, settings.samples_per_pixel)
 
+    if group:
+        from pathtracer_tpu_torch.parallel.distributed import process_index, sync_global_devices
+
+        sync_global_devices("start")
     t0 = time.perf_counter()
     if args.checkpoint:
         mean = render_checkpointed(
@@ -175,7 +213,7 @@ def main(argv=None) -> int:
         from pathtracer_tpu_torch.parallel.mesh import make_mesh
         from pathtracer_tpu_torch.parallel.render import render_pool_sharded, render_sharded
 
-        mesh = make_mesh(None if args.device is None else [args.device])
+        mesh = make_mesh([device])  # in a group of workers: spans the group
         if settings.scheduler == "regen":
             mean = render_pool_sharded(scene, camera, settings, mesh)
         else:
@@ -189,7 +227,11 @@ def main(argv=None) -> int:
             preview_every=preview_every,
             preview_fn=preview if preview_every else None,
         )
+    if group:
+        sync_global_devices("rendered")
     dt = time.perf_counter() - t0
+    if group and process_index() != 0:
+        return 0
 
     n_rays = settings.width * settings.height * settings.samples_per_pixel
     print(f"rendered in {dt:.2f}s ({n_rays / dt / 1e6:.2f} Mpaths/s)")

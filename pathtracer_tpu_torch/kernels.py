@@ -148,3 +148,24 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().pt_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counts by family, each ``{"closest": n,
+    "occluded": n}`` (the wrappers count where they launch their kernel)."""
+    from pathtracer_tpu_torch.ops import (
+        intersect_cluster,
+        intersect_shortlist_kernel,
+        intersect_small,
+        intersect_tiled,
+    )
+
+    return {"small": intersect_small.launches, "shortlist": intersect_shortlist_kernel.launches,
+            "tiled": intersect_tiled.launches, "cluster": intersect_cluster.launches}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for counts in launch_counts().values():
+        for entry in counts:
+            counts[entry] = 0

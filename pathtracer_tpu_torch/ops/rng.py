@@ -104,6 +104,11 @@ def hash_u32(pixel_ids, sample_ids, counter, seed: int = 0):
     return h
 
 
+def hash_uniform(pixel_ids, sample_ids, counter, seed: int = 0):
+    """[B] f32 uniforms in [0, 1) from the hash generator (24-bit mantissa)."""
+    return _u01(hash_u32(pixel_ids, sample_ids, counter, seed))
+
+
 def _u01(bits):
     """u32 bits -> f32 uniform in [0, 1) (top 24 bits)."""
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))

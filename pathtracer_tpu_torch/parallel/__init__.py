@@ -5,7 +5,7 @@ Port of ``pathtracer_tpu/parallel``. Submodules import lazily so that
 ``torch.distributed`` initialised) before anything else touches the card.
 """
 
-_SUBMODULES = ("mesh", "render", "distributed")
+_SUBMODULES = ("mesh", "render", "distributed", "launch")
 
 
 def __getattr__(name):

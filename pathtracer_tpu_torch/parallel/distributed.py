@@ -13,9 +13,11 @@ Environment variables (all optional; arguments win over them):
 - ``PT_TPU_COORDINATOR``   e.g. "10.0.0.1:8476" or "127.0.0.1:8476"
 - ``PT_TPU_NUM_PROCESSES`` total process count
 - ``PT_TPU_PROCESS_ID``    this process's rank
+- ``PT_TPU_BACKEND``       "nccl" (the default) or "gloo"
 
 Nothing here detects a cluster: the address, the process count and the rank
-are given.
+are given. ``parallel.launch.run_workers`` starts one such process per
+device on this host and sets these variables for each.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def initialize(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
-    backend: str = "nccl",
+    backend: str | None = None,
 ) -> None:
     """Join this process to the group at ``coordinator_address``
     ("host:port").
@@ -38,9 +40,11 @@ def initialize(
     No-op when neither the arguments nor the environment ask for several
     processes. Call once, before anything else touches the card. With a card
     this process takes card ``LOCAL_RANK`` (else its rank modulo the card
-    count) as its current device. ``backend="nccl"`` needs a card and raises
-    without one; the CPU runs pass ``backend="gloo"``.
+    count) as its current device. ``backend`` (else ``PT_TPU_BACKEND``, else
+    "nccl"): "nccl" needs a card and raises without one; the CPU runs and
+    processes that share a card pass "gloo".
     """
+    backend = backend or os.environ.get("PT_TPU_BACKEND", "nccl")
     coordinator_address = coordinator_address or os.environ.get("PT_TPU_COORDINATOR")
     if num_processes is None and "PT_TPU_NUM_PROCESSES" in os.environ:
         num_processes = int(os.environ["PT_TPU_NUM_PROCESSES"])

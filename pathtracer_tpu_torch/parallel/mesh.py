@@ -11,7 +11,8 @@ and gradients reduce with ``all_reduce`` over the group.
 A device may repeat: ``make_mesh(["cuda:0"] * 3)`` runs three shards on one
 card, and the CPU tests run ``make_mesh(["cpu"] * 8)``. The shards of one
 process run one after another (the pool syncs with the host every
-iteration), so cards work at the same time only with one process per card.
+iteration), so cards work at the same time only with one process per card
+(``parallel.launch.run_workers``).
 """
 
 from __future__ import annotations

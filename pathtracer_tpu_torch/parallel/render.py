@@ -10,9 +10,11 @@ summation into the image.
 
 The shards of one process run one after another: the pool syncs with the
 host every iteration, so an in-process mesh of several devices (or of one
-device repeated) gives parity with JAX's single-process mesh, not speed.
-Cards run at the same time with one process per card
-(``parallel.distributed.initialize``).
+device repeated) gives parity with JAX's single-process mesh, as the tests
+use it, not speed. The CLI's and ``bench_torch.py``'s ``--sharded`` run
+several devices as several processes, one per device
+(``parallel.launch.run_workers``), each with a mesh of its one device that
+spans the group, and those run at the same time.
 """
 
 from __future__ import annotations

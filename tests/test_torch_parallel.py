@@ -20,16 +20,14 @@ Bounds:
 - CLI PNGs with and without ``--sharded``: one 8-bit step on at most 0.1%
   of the values.
 
-Run as ``python tests/test_torch_parallel.py --worker <rank> <n> <port>
-<out>`` the file is one process of the two-process test.
+Run as ``python tests/test_torch_parallel.py --worker <out>`` (with the
+``PT_TPU_*`` variables that ``parallel.launch.run_workers`` sets) the file is
+one process of the two-process test.
 """
 
 import dataclasses
 import os
-import socket
-import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -40,7 +38,7 @@ from pathtracer_tpu_torch.models import procedural
 from pathtracer_tpu_torch.models.pack import pack_scene
 from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
 from pathtracer_tpu_torch.ops.camera_rays import ray_frame_tensors
-from pathtracer_tpu_torch.parallel import distributed
+from pathtracer_tpu_torch.parallel import distributed, launch
 from pathtracer_tpu_torch.parallel.mesh import RAY_AXIS, make_mesh, replicas, shard_rows
 from pathtracer_tpu_torch.parallel.render import (
     render_pool_sharded,
@@ -294,57 +292,108 @@ def test_cli_sharded_writes_the_plain_png(tmp_path, scheduler):
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+@pytest.mark.parametrize("scheduler", ["regen", "scan"])
+def test_cli_sharded_over_two_workers_writes_the_plain_png(tmp_path, scheduler):
+    """``--sharded --device cpu --device cpu``: two worker processes over
+    gloo, process 0 writing the PNG; the scan's PNG equals the plain CLI's on
+    every value, the pool's within one 8-bit step on at most 0.1% of them."""
+    from pathtracer_tpu_torch.cli import main
+    from pathtracer_tpu_torch.utils.image import read_png
+
+    ini = procedural.write_cornell_box_files(str(tmp_path), width=16, height=16,
+                                             samples_per_pixel=2)
+    pngs = []
+    for extra in ([], ["--sharded", "--device", "cpu"]):
+        pngs.append(str(tmp_path / f"{scheduler}{len(extra)}.png"))
+        assert main([ini, "--device", "cpu", "--scheduler", scheduler, "--out", pngs[-1],
+                     *extra]) == 0
+    a, b = (np.round(read_png(p) * 255) for p in pngs)
+    diff = np.abs(a - b)
+    if scheduler == "scan":
+        assert diff.max() == 0
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
-def _run_workers(out: str, n: int = 2, timeout: float = 300.0) -> list:
-    """Run the ``n`` worker processes to their end -> their logs.
+def test_cli_sharded_worker_failure_exits_non_zero(tmp_path, capsys):
+    from pathtracer_tpu_torch.cli import main
 
-    A worker that fails stops the others at once. Another process on the
-    machine may take the free port before rank 0 listens on it; that run is
-    repeated once on a new port.
-    """
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([os.path.dirname(os.path.dirname(
-                   os.path.abspath(__file__))), os.environ.get("PYTHONPATH", "")]))
-    for attempt in range(2):
-        port = _free_port()
-        log_paths = [f"{out}.{rank}.log" for rank in range(n)]
-        procs = []
-        try:
-            for rank in range(n):
-                with open(log_paths[rank], "w") as log:
-                    procs.append(subprocess.Popen(
-                        [sys.executable, os.path.abspath(__file__), "--worker", str(rank),
-                         str(n), str(port), out],
-                        stdout=log, stderr=subprocess.STDOUT, env=env))
-            deadline = time.monotonic() + timeout
-            while (any(p.poll() is None for p in procs)
-                   and not any(p.poll() for p in procs) and time.monotonic() < deadline):
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        logs = [open(path).read() for path in log_paths]
-        taken = any("EADDRINUSE" in log or "address already in use" in log for log in logs)
-        if all(p.returncode == 0 for p in procs) or attempt or not taken:
-            break
-    for rank, p in enumerate(procs):
-        assert p.returncode == 0, f"worker {rank} exited {p.returncode}:\n{logs[rank]}"
-    return logs
+    missing = str(tmp_path / "missing.ini")
+    rc = main([missing, "--device", "cpu", "--device", "cpu", "--sharded",
+               "--out", str(tmp_path / "x.png")])
+    assert rc != 0 and not (tmp_path / "x.png").exists()
+    err = capsys.readouterr().err
+    assert "worker 0 of 2 on cpu (gloo) exited" in err and "missing.ini" in err
 
 
-def _worker(rank: int, n: int, port: int, out: str) -> None:
-    """One process of the two-process test: gloo, two CPU shards."""
+def test_cli_several_devices_need_sharded_and_one_device_options(tmp_path):
+    from pathtracer_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["x.ini", "--device", "cpu", "--device", "cpu"])
+    assert e.value.code == 2
+    with pytest.raises(SystemExit) as e:
+        main(["x.ini", "--device", "cpu", "--device", "cpu", "--sharded",
+              "--checkpoint", str(tmp_path / "s.npz")])
+    assert e.value.code == 2
+
+
+@pytest.mark.parametrize("devices,backend", [
+    (["cpu", "cpu"], "gloo"), (["cuda:0", "cuda:0"], "gloo"), (["cuda", "cuda:0"], "gloo"),
+    (["cuda:0", "cuda:1"], "nccl"), (["cuda:0", "cpu"], "gloo")])
+def test_launch_backend(devices, backend):
+    """NCCL only when every worker has a card of its own."""
+    assert launch.backend_for(devices) == backend
+
+
+def test_run_workers_passes_rank_0_output_and_variables(capsys):
+    code = ("import os; e = os.environ; print('rank', e['PT_TPU_PROCESS_ID'], "
+            "e['PT_TPU_NUM_PROCESSES'], e['PT_TPU_BACKEND'], e['PT_TPU_DEVICE'], "
+            "e['PT_TPU_COORDINATOR'].startswith('127.0.0.1:'))")
+    assert launch.run_workers(["-c", code], ["cpu"] * 3, timeout=60) == 0
+    assert capsys.readouterr().out == "rank 0 3 gloo cpu True\n"
+
+
+def test_run_workers_reports_a_failed_worker(capsys):
+    """A worker that exits non-zero stops the others; its code comes back
+    and its output's tail goes to stderr."""
+    code = ("import os, sys, time; r = int(os.environ['PT_TPU_PROCESS_ID']); "
+            "print('bye from', r, file=sys.stderr); time.sleep(60 * (r == 0)); sys.exit(5 * r)")
+    assert launch.run_workers(["-c", code], ["cpu", "cpu"], timeout=120) == 5
+    err = capsys.readouterr().err
+    assert "worker 1 of 2 on cpu (gloo) exited 5" in err and "bye from 1" in err
+
+
+def test_run_workers_retries_a_taken_port(tmp_path):
+    """A first run whose rendezvous lost its port (EADDRINUSE) is repeated on
+    a fresh port; a second failure is returned."""
+    marker = tmp_path / "first"
+    code = ("import os, sys; m = sys.argv[1]\n"
+            "if os.environ['PT_TPU_PROCESS_ID'] == '0' and not os.path.exists(m):\n"
+            "    open(m, 'w').write(os.environ['PT_TPU_COORDINATOR'])\n"
+            "    sys.exit('EADDRINUSE')\n")
+    assert launch.run_workers(["-c", code, str(marker)], ["cpu", "cpu"], timeout=60) == 0
+    assert marker.exists()
+    always = "import sys; sys.exit('EADDRINUSE')"
+    assert launch.run_workers(["-c", always], ["cpu"], timeout=60) == 1
+
+
+def _run_workers(out: str, n: int = 2) -> None:
+    """This file run as ``--worker`` by ``n`` CPU processes of one gloo group
+    (``parallel.launch.run_workers``: a free port, retried once if another
+    process takes it), to their end."""
+    assert launch.run_workers([os.path.abspath(__file__), "--worker", out], ["cpu"] * n,
+                              timeout=300) == 0
+
+
+def _worker(out: str) -> None:
+    """One process of the two-process test: gloo, two CPU shards; its rank,
+    the group and the backend come from ``run_workers``' variables."""
     import torch.distributed as dist
 
-    distributed.initialize(f"127.0.0.1:{port}", n, rank, backend="gloo")
-    assert distributed.is_initialized() and distributed.process_index() == rank
+    distributed.initialize()
+    rank, n = distributed.process_index(), dist.get_world_size()
+    assert distributed.is_initialized() and dist.get_backend() == "gloo"
+    assert launch.worker_device() == "cpu"
     mesh = _cpu_mesh(2)
     assert mesh.size == 2 * n and mesh.processes == n
     scene, camera = procedural.cornell_box_scene(device="cpu")
@@ -421,4 +470,4 @@ def test_two_processes_over_gloo(tmp_path):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
-        _worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+        _worker(sys.argv[2])

@@ -62,6 +62,20 @@ def test_bounce_uniforms_bit_equal(seed, per_lane):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_hash_uniform_bit_equal(seed, per_lane):
+    pix, sample, lane = _ids(seed + 4)
+    counter = lane if per_lane else 9
+    ref = np.asarray(jrng.hash_uniform(jnp.asarray(pix), jnp.asarray(sample),
+                                       jnp.asarray(counter), seed=seed))
+    got = trng.hash_uniform(_t(pix), _t(sample), _t(lane) if per_lane else counter,
+                            seed=seed)
+    assert got.dtype == torch.float32 and ref.dtype == np.float32
+    assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 @pytest.mark.parametrize("seed", [0, 7])
 def test_pixel_jitter_bit_equal(seed):
     pix, sample, _ = _ids(seed + 3)
