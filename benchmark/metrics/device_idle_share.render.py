@@ -1,0 +1,7 @@
+"""Percent of the traced renders' wall time in which no operation ran on
+the device: 100 x (1 - union of the device intervals / the traced window),
+both from torch.profiler over the same whole renders."""
+
+
+def read(trace):
+    return trace.idle_percent()
