@@ -41,6 +41,7 @@ from pathtracer_tpu_torch.ops.integrator import radiance_batch
 from pathtracer_tpu_torch.ops.tonemap import maximum, tonemap_reference
 from pathtracer_tpu_torch.parallel.distributed import sync_global_devices
 from pathtracer_tpu_torch.parallel.mesh import all_reduce, replicas, shard_rows
+from pathtracer_tpu_torch.utils.profiling import span
 
 # Differentiable material arrays. ``mat_Ns`` (Phong roughness exponent) is
 # optimizable too; fit it with ``compat_count_light_pdf=False`` (or the
@@ -247,12 +248,13 @@ def make_train_step(settings, optimizer, mesh=None, loss_space="radiance"):
                    sample_ids_b):
         args = (params, scene, settings, frame, target_rows, pixel_ids, sample_ids_a,
                 sample_ids_b, loss_space)
-        loss, grads = (loss_and_grads(*args) if mesh is None
-                       else _sharded_loss_and_grads(*args, mesh=mesh))
-        for k, p in params.items():
-            p.grad = grads[k]
-        optimizer.step()
-        project_params(params)
+        with span("pt.train_step"):
+            loss, grads = (loss_and_grads(*args) if mesh is None
+                           else _sharded_loss_and_grads(*args, mesh=mesh))
+            for k, p in params.items():
+                p.grad = grads[k]
+            optimizer.step()
+            project_params(params)
         return loss
 
     return train_step

@@ -45,6 +45,7 @@ from pathtracer_tpu_torch.ops.lights import (
     sample_area_lights,
     sample_area_lights_detailed,
 )
+from pathtracer_tpu_torch.utils.profiling import span
 
 PI = math.pi
 NEE_OFFSET = 1.0e-4
@@ -152,91 +153,92 @@ def bounce_core(scene, settings, o, d, beta, radiance, alive, spec,
     (regenerative pool). Returns the updated lane state plus the number of
     rays traced, an int64 tensor.
     """
-    # Slots 0..6 are consumed below (BSDF_DIR + 2 = 7); extra NEE samples
-    # index columns past STRIDE, so only then is the full stride needed.
-    if settings.num_direct_lighting_samples == 1:
-        n_uniforms = rng.BSDF_DIR + 2
-    else:
-        n_uniforms = rng.STRIDE + 3 * (settings.num_direct_lighting_samples - 1)
-    u = rng.bounce_uniforms(settings, pixel_ids, sample_ids, depth, n_uniforms)
+    with span("pt.bounce"):
+        # Slots 0..6 are consumed below (BSDF_DIR + 2 = 7); extra NEE samples
+        # index columns past STRIDE, so only then is the full stride needed.
+        if settings.num_direct_lighting_samples == 1:
+            n_uniforms = rng.BSDF_DIR + 2
+        else:
+            n_uniforms = rng.STRIDE + 3 * (settings.num_direct_lighting_samples - 1)
+        u = rng.bounce_uniforms(settings, pixel_ids, sample_ids, depth, n_uniforms)
 
-    # Live closest-hit rays this bounce (shadow rays counted below).
-    n_rays = torch.sum(alive)
+        # Live closest-hit rays this bounce (shadow rays counted below).
+        n_rays = torch.sum(alive)
 
-    q_o, q_d = _park_rays(o, d, alive)
-    hit, mat = closest_hit(scene, q_o, q_d, settings)
-    n = hit.normal_shade
+        q_o, q_d = _park_rays(o, d, alive)
+        hit, mat = closest_hit(scene, q_o, q_d, settings)
+        n = hit.normal_shade
 
-    active = alive & hit.hit
-    emissive = torch.sum(mat["Ke"], dim=-1) > 0.0
+        active = alive & hit.hit
+        emissive = torch.sum(mat["Ke"], dim=-1) > 0.0
 
-    # -- emissive termination
-    add_mask = active & emissive & (spec | (depth == 0))
-    radiance = radiance + torch.where(add_mask[:, None], beta * mat["Ke"], 0.0)
-    alive = active & ~add_mask
+        # -- emissive termination
+        add_mask = active & emissive & (spec | (depth == 0))
+        radiance = radiance + torch.where(add_mask[:, None], beta * mat["Ke"], 0.0)
+        alive = active & ~add_mask
 
-    # -- NEE
-    n_rays = n_rays + torch.sum(alive) * settings.num_direct_lighting_samples
-    contrib, shadow_hit = _nee(scene, settings, hit, mat, d, beta, u, alive)
-    radiance = radiance + contrib
-    if settings.direct_lighting_only:
-        alive = alive & ~shadow_hit
+        # -- NEE
+        n_rays = n_rays + torch.sum(alive) * settings.num_direct_lighting_samples
+        contrib, shadow_hit = _nee(scene, settings, hit, mat, d, beta, u, alive)
+        radiance = radiance + contrib
+        if settings.direct_lighting_only:
+            alive = alive & ~shadow_hit
 
-    # -- Russian roulette
-    alive = alive & (u[:, rng.RR] <= settings.rr_prob)
-    inv_rr = 1.0 / settings.rr_prob
+        # -- Russian roulette
+        alive = alive & (u[:, rng.RR] <= settings.rr_prob)
+        inv_rr = 1.0 / settings.rr_prob
 
-    # -- BSDF select
-    is_dielectric = mat["illum"] == 7.0
-    r_theta, refr_dir, tir = dielectric_directions(
-        d, n, mat["Ni"], settings.compat_fixed_eta
-    )
-    chose_reflect = u[:, rng.FRESNEL] < r_theta
-    if not settings.compat_fixed_eta:
-        # Corrected mode: total internal reflection reflects.
-        chose_reflect = chose_reflect | tir
-    refract_lane = is_dielectric & ~chose_reflect
-    mirror_lane = (mat["Ns"] > 500.0) | (is_dielectric & chose_reflect)
-    specular_lane = refract_lane | mirror_lane
-
-    samp_dir, pdf = sample_cosine_hemisphere(
-        n, u[:, rng.BSDF_DIR], u[:, rng.BSDF_DIR + 1]
-    )
-    glossy_lane = (torch.sum(mat["Ks"], dim=-1) > 0.0) & ~specular_lane
-    if settings.glossy_brdf == "beckmann":
-        brdf_gloss = eval_beckmann(
-            mat["Ks"], mat["Ns"], d, samp_dir, n, settings.beckmann_alpha
+        # -- BSDF select
+        is_dielectric = mat["illum"] == 7.0
+        r_theta, refr_dir, tir = dielectric_directions(
+            d, n, mat["Ni"], settings.compat_fixed_eta
         )
-        q = _dot(reflect(d, n), samp_dir)
-    else:
-        brdf_gloss, q = eval_phong_bounce(mat["Ks"], mat["Ns"], d, samp_dir, n)
-    brdf_diff = mat["Kd"] / PI
-    brdf = torch.where(glossy_lane[:, None], brdf_gloss, brdf_diff)
+        chose_reflect = u[:, rng.FRESNEL] < r_theta
+        if not settings.compat_fixed_eta:
+            # Corrected mode: total internal reflection reflects.
+            chose_reflect = chose_reflect | tir
+        refract_lane = is_dielectric & ~chose_reflect
+        mirror_lane = (mat["Ns"] > 500.0) | (is_dielectric & chose_reflect)
+        specular_lane = refract_lane | mirror_lane
 
-    new_d = torch.where(
-        specular_lane[:, None],
-        torch.where(refract_lane[:, None], refr_dir, reflect(d, n)),
-        samp_dir,
-    )
-    new_o = hit.point + RAY_OFFSET * new_d
+        samp_dir, pdf = sample_cosine_hemisphere(
+            n, u[:, rng.BSDF_DIR], u[:, rng.BSDF_DIR + 1]
+        )
+        glossy_lane = (torch.sum(mat["Ks"], dim=-1) > 0.0) & ~specular_lane
+        if settings.glossy_brdf == "beckmann":
+            brdf_gloss = eval_beckmann(
+                mat["Ks"], mat["Ns"], d, samp_dir, n, settings.beckmann_alpha
+            )
+            q = _dot(reflect(d, n), samp_dir)
+        else:
+            brdf_gloss, q = eval_phong_bounce(mat["Ks"], mat["Ns"], d, samp_dir, n)
+        brdf_diff = mat["Kd"] / PI
+        brdf = torch.where(glossy_lane[:, None], brdf_gloss, brdf_diff)
 
-    cos_t = _dot(samp_dir, n)
-    diffuse_scale = brdf * (cos_t / torch.clamp(pdf, min=1e-20) * inv_rr)[:, None]
-    new_beta = beta * torch.where(specular_lane[:, None], inv_rr, diffuse_scale)
+        new_d = torch.where(
+            specular_lane[:, None],
+            torch.where(refract_lane[:, None], refr_dir, reflect(d, n)),
+            samp_dir,
+        )
+        new_o = hit.point + RAY_OFFSET * new_d
 
-    bounce_spec = specular_lane | (glossy_lane & (depth == 0) & (q >= 0.0))
-    if settings.compat_sticky_specular:
-        # Reference quirk: hit_specular is never reset within a path.
-        new_spec = spec | (alive & bounce_spec)
-    else:
-        new_spec = alive & specular_lane
+        cos_t = _dot(samp_dir, n)
+        diffuse_scale = brdf * (cos_t / torch.clamp(pdf, min=1e-20) * inv_rr)[:, None]
+        new_beta = beta * torch.where(specular_lane[:, None], inv_rr, diffuse_scale)
 
-    live = alive[:, None]
-    o = torch.where(live, new_o, o)
-    d = torch.where(live, new_d, d)
-    beta = torch.where(live, new_beta, beta)
-    spec = torch.where(alive, new_spec, spec)
-    return o, d, beta, radiance, alive, spec, n_rays
+        bounce_spec = specular_lane | (glossy_lane & (depth == 0) & (q >= 0.0))
+        if settings.compat_sticky_specular:
+            # Reference quirk: hit_specular is never reset within a path.
+            new_spec = spec | (alive & bounce_spec)
+        else:
+            new_spec = alive & specular_lane
+
+        live = alive[:, None]
+        o = torch.where(live, new_o, o)
+        d = torch.where(live, new_d, d)
+        beta = torch.where(live, new_beta, beta)
+        spec = torch.where(alive, new_spec, spec)
+        return o, d, beta, radiance, alive, spec, n_rays
 
 
 def radiance_batch_stats(scene, settings, o, d, pixel_ids, sample_ids):
@@ -267,8 +269,9 @@ def radiance_batch_stats(scene, settings, o, d, pixel_ids, sample_ids):
             out = bounce_core(*args)
         o, d, beta, radiance, alive, spec, dn = out
         n_rays = n_rays + dn
-        if not bool(torch.any(alive)):
-            break
+        with span("pt.sync"):
+            if not bool(torch.any(alive)):
+                break
     return radiance, n_rays
 
 

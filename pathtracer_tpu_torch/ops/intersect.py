@@ -34,6 +34,8 @@ from pathtracer_tpu_torch.ops import bvh_traverse, intersect_cluster
 from pathtracer_tpu_torch.ops import intersect_shortlist as shortlist
 from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist_kernel
 from pathtracer_tpu_torch.ops import intersect_small, intersect_tiled
+from pathtracer_tpu_torch.ops.gather import gather_rows
+from pathtracer_tpu_torch.utils.profiling import span
 
 EPS_TRI = 1e-8  # the reference's ray-triangle epsilon
 INF = float("inf")
@@ -218,35 +220,36 @@ def occluded_before(scene, o, d, t_max, settings, rel_eps: float = 1e-3):
     along the ray; ``hit_any``: the ray hits anything at all (the
     reference's ``directLightingOnly`` break keys on this).
     """
-    t_cut = t_max * (1.0 - rel_eps)
-    method = resolve_intersector(settings, scene)
-    if scene.num_tris == 0:
-        occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-        hit_any = occ
-    elif method in _OCCLUDED_ANY:
-        occ, hit_any = _OCCLUDED_ANY[method](
-            scene, o, d, t_cut, want_any=settings.direct_lighting_only
-        )
-        if not settings.direct_lighting_only:
-            hit_any = occ  # not computed; consumed only by direct lighting
-    elif method in _SHORTLIST_OCCLUDED and not settings.direct_lighting_only:
-        occ = _SHORTLIST_OCCLUDED[method](scene, o, d, t_cut)
-        hit_any = occ  # consumed only by direct lighting, handled below
-    elif method in _CLOSEST:
-        # Direct lighting consumes "the shadow ray hit anything", which the
-        # shortlist's cutoff-bounded any-hit loop does not compute: the
-        # closest-hit core answers both, as in the JAX package. The BVH
-        # oracle has no any-hit walk and always takes this branch.
-        t_tri, _ = _CLOSEST[method](scene, o, d)
-        occ, hit_any = t_tri < t_cut, torch.isfinite(t_tri)
-    else:
-        occ, hit_any = _occluded_tri_brute(scene, o, d, t_cut)
+    with span("pt.intersect"):
+        t_cut = t_max * (1.0 - rel_eps)
+        method = resolve_intersector(settings, scene)
+        if scene.num_tris == 0:
+            occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+            hit_any = occ
+        elif method in _OCCLUDED_ANY:
+            occ, hit_any = _OCCLUDED_ANY[method](
+                scene, o, d, t_cut, want_any=settings.direct_lighting_only
+            )
+            if not settings.direct_lighting_only:
+                hit_any = occ  # not computed; consumed only by direct lighting
+        elif method in _SHORTLIST_OCCLUDED and not settings.direct_lighting_only:
+            occ = _SHORTLIST_OCCLUDED[method](scene, o, d, t_cut)
+            hit_any = occ  # consumed only by direct lighting, handled below
+        elif method in _CLOSEST:
+            # Direct lighting consumes "the shadow ray hit anything", which the
+            # shortlist's cutoff-bounded any-hit loop does not compute: the
+            # closest-hit core answers both, as in the JAX package. The BVH
+            # oracle has no any-hit walk and always takes this branch.
+            t_tri, _ = _CLOSEST[method](scene, o, d)
+            occ, hit_any = t_tri < t_cut, torch.isfinite(t_tri)
+        else:
+            occ, hit_any = _occluded_tri_brute(scene, o, d, t_cut)
 
-    if scene.num_analytic > 0:
-        t_a, _, _, _ = intersect_analytic(scene, o, d)
-        occ = occ | (t_a < t_cut)
-        hit_any = hit_any | torch.isfinite(t_a)
-    return occ, hit_any
+        if scene.num_analytic > 0:
+            t_a, _, _, _ = intersect_analytic(scene, o, d)
+            occ = occ | (t_a < t_cut)
+            hit_any = hit_any | torch.isfinite(t_a)
+        return occ, hit_any
 
 
 def _xform(m, x, w: bool):
@@ -326,12 +329,13 @@ def intersect_analytic(scene, o, d):
 
 
 def material_lookup(scene, mat_id):
-    """Material record dict for [B] material ids, by indexing."""
+    """Material record dict for [B] material ids, by indexing (the fields
+    inverse rendering fits through ``gather_rows``)."""
     return {
-        "Kd": scene.mat_Kd[mat_id],
-        "Ks": scene.mat_Ks[mat_id],
-        "Ke": scene.mat_Ke[mat_id],
-        "Ns": scene.mat_Ns[mat_id],
+        "Kd": gather_rows(scene.mat_Kd, mat_id),
+        "Ks": gather_rows(scene.mat_Ks, mat_id),
+        "Ke": gather_rows(scene.mat_Ke, mat_id),
+        "Ns": gather_rows(scene.mat_Ns, mat_id),
         "Ni": scene.mat_Ni[mat_id],
         "illum": scene.mat_illum[mat_id],
     }
@@ -374,71 +378,72 @@ def closest_hit(scene, o, d, settings):
     Miss lanes are sanitized (unit-z normal, Ni = 1, zero material) so the
     masked BSDF math downstream stays finite.
     """
-    method = resolve_intersector(settings, scene)
-    b = o.shape[0]
-    if scene.num_tris == 0:
-        t_tri = torch.full((b,), INF, dtype=o.dtype, device=o.device)
-        tri_id = torch.full((b,), -1, dtype=torch.int64, device=o.device)
-        n_geo = torch.zeros_like(o)
-        mat_id = torch.zeros(b, dtype=torch.int64, device=o.device)
-    elif method == "small_pallas":
-        t_tri, tri_id, n_geo, mat_id = intersect_small.closest_tri_small(
-            scene, o, d
+    with span("pt.intersect"):
+        method = resolve_intersector(settings, scene)
+        b = o.shape[0]
+        if scene.num_tris == 0:
+            t_tri = torch.full((b,), INF, dtype=o.dtype, device=o.device)
+            tri_id = torch.full((b,), -1, dtype=torch.int64, device=o.device)
+            n_geo = torch.zeros_like(o)
+            mat_id = torch.zeros(b, dtype=torch.int64, device=o.device)
+        elif method == "small_pallas":
+            t_tri, tri_id, n_geo, mat_id = intersect_small.closest_tri_small(
+                scene, o, d
+            )
+            tri_id, mat_id = tri_id.to(torch.int64), mat_id.to(torch.int64)
+        else:
+            closest = _CLOSEST.get(method, closest_tri_brute)
+            t_tri, tri_id = closest(scene, o, d)
+            tri_hit = tri_id >= 0
+            win = torch.clamp(tri_id, min=0)
+            n_geo = torch.where(tri_hit[:, None], scene.tri_n[win], 0.0)
+            mat_id = torch.where(tri_hit, scene.tri_mat[win], 0)
+        if settings.use_vertex_normals:
+            win = torch.clamp(tri_id, min=0)
+            n_shade = _vn_shading_normal(
+                o, d, scene.tri_v0[win], scene.tri_e1[win], scene.tri_e2[win],
+                scene.tri_vn[win].reshape(b, 9), n_geo,
+            )
+        else:
+            n_shade = n_geo
+
+        # Miss lanes keep t = inf but get finite coordinates.
+        t_pt = torch.where(torch.isfinite(t_tri), t_tri, 0.0)
+        point = o + t_pt[:, None] * d
+
+        if scene.num_analytic > 0:
+            t_a, p_a, n_a, m_a = intersect_analytic(scene, o, d)
+            use_a = t_a < t_tri
+            t_tri = torch.where(use_a, t_a, t_tri)
+            point = torch.where(use_a[:, None], p_a, point)
+            n_geo = torch.where(use_a[:, None], n_a, n_geo)
+            n_shade = torch.where(use_a[:, None], n_a, n_shade)
+            mat_id = torch.where(use_a, m_a, mat_id)
+            tri_id = torch.where(use_a, -1, tri_id)
+
+        hit = torch.isfinite(t_tri)
+        mat = {
+            k: torch.where(hit[:, None] if v.dim() == 2 else hit, v, 0.0)
+            for k, v in material_lookup(scene, mat_id).items()
+        }
+        # Sanitize miss lanes.
+        unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=o.dtype, device=o.device)
+        n_geo = torch.where(hit[:, None], n_geo, unit_z)
+        n_shade = torch.where(hit[:, None], n_shade, unit_z)
+        mat["Ni"] = torch.where(hit, mat["Ni"], 1.0)
+
+        return (
+            Hit(
+                hit=hit,
+                t=t_tri,
+                point=point,
+                normal=n_geo,
+                normal_shade=n_shade,
+                mat_id=mat_id,
+                tri_id=tri_id,
+            ),
+            mat,
         )
-        tri_id, mat_id = tri_id.to(torch.int64), mat_id.to(torch.int64)
-    else:
-        closest = _CLOSEST.get(method, closest_tri_brute)
-        t_tri, tri_id = closest(scene, o, d)
-        tri_hit = tri_id >= 0
-        win = torch.clamp(tri_id, min=0)
-        n_geo = torch.where(tri_hit[:, None], scene.tri_n[win], 0.0)
-        mat_id = torch.where(tri_hit, scene.tri_mat[win], 0)
-    if settings.use_vertex_normals:
-        win = torch.clamp(tri_id, min=0)
-        n_shade = _vn_shading_normal(
-            o, d, scene.tri_v0[win], scene.tri_e1[win], scene.tri_e2[win],
-            scene.tri_vn[win].reshape(b, 9), n_geo,
-        )
-    else:
-        n_shade = n_geo
-
-    # Miss lanes keep t = inf but get finite coordinates.
-    t_pt = torch.where(torch.isfinite(t_tri), t_tri, 0.0)
-    point = o + t_pt[:, None] * d
-
-    if scene.num_analytic > 0:
-        t_a, p_a, n_a, m_a = intersect_analytic(scene, o, d)
-        use_a = t_a < t_tri
-        t_tri = torch.where(use_a, t_a, t_tri)
-        point = torch.where(use_a[:, None], p_a, point)
-        n_geo = torch.where(use_a[:, None], n_a, n_geo)
-        n_shade = torch.where(use_a[:, None], n_a, n_shade)
-        mat_id = torch.where(use_a, m_a, mat_id)
-        tri_id = torch.where(use_a, -1, tri_id)
-
-    hit = torch.isfinite(t_tri)
-    mat = {
-        k: torch.where(hit[:, None] if v.dim() == 2 else hit, v, 0.0)
-        for k, v in material_lookup(scene, mat_id).items()
-    }
-    # Sanitize miss lanes.
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=o.dtype, device=o.device)
-    n_geo = torch.where(hit[:, None], n_geo, unit_z)
-    n_shade = torch.where(hit[:, None], n_shade, unit_z)
-    mat["Ni"] = torch.where(hit, mat["Ni"], 1.0)
-
-    return (
-        Hit(
-            hit=hit,
-            t=t_tri,
-            point=point,
-            normal=n_geo,
-            normal_shade=n_shade,
-            mat_id=mat_id,
-            tri_id=tri_id,
-        ),
-        mat,
-    )
 
 
 def intersect(scene, o, d, settings) -> Hit:

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from pathtracer_tpu_torch.ops.gather import gather_rows
+
 
 def _norm(v):
     return torch.sqrt(torch.sum(v * v, dim=-1))
@@ -84,7 +86,7 @@ def sample_area_lights_detailed(scene, x, u_choice, u1, u2,
     j, weight = _choose_emissive(scene, x, u_choice, compat_count_pdf)
     tri, v0, p1, p2 = _light_triangle(scene, j)
     n_l = scene.tri_n[tri]
-    ke = scene.mat_Ke[scene.tri_mat[tri]]
+    ke = gather_rows(scene.mat_Ke, scene.tri_mat[tri])
 
     b0, b1 = sample_triangle_barycentric(u1, u2)
     p = b0[:, None] * v0 + b1[:, None] * p1 + (1.0 - b0 - b1)[:, None] * p2

@@ -25,6 +25,7 @@ from pathtracer_tpu_torch.ops import rng
 from pathtracer_tpu_torch.ops.camera_rays import generate_rays, ray_frame_tensors
 from pathtracer_tpu_torch.ops.integrator import bounce_core
 from pathtracer_tpu_torch.ops.intersect import resolve_intersector
+from pathtracer_tpu_torch.utils.profiling import span
 
 # Ray-sort grid cells per axis (16 -> a 12-bit Morton cell), the JAX
 # package's default.
@@ -218,64 +219,69 @@ def render_pool(
     if sort_rays:
         sort_lo, sort_inv = _sort_bounds(scene)
 
-    while bool(torch.any(alive)):
-        if sort_rays:
-            perm = torch.sort(_sort_key(o, d, alive, sort_lo, sort_inv),
-                              stable=True).indices
-            (o, d, beta, radiance, acc, alive, spec, pixel, sample, depth,
-             chunk_left) = (x[perm] for x in (o, d, beta, radiance, acc, alive,
-                                              spec, pixel, sample, depth,
-                                              chunk_left))
-        was_alive = alive
-        o, d, beta, radiance, alive, spec, n = bounce_core(
-            scene, settings, o, d, beta, radiance, alive, spec,
-            pixel, sample, depth,
-        )
-        n_rays = n_rays + n
-        iters += 1
-        depth = depth + 1
-        # Depth cap (reference: while depth <= 16 -> max_depth bounces).
-        alive = alive & (depth < settings.max_depth)
+    while True:
+        with span("pt.sync"):
+            if not bool(torch.any(alive)):
+                break
+        with span("pt.pool_iter"):
+            if sort_rays:
+                perm = torch.sort(_sort_key(o, d, alive, sort_lo, sort_inv),
+                                  stable=True).indices
+                (o, d, beta, radiance, acc, alive, spec, pixel, sample, depth,
+                 chunk_left) = (x[perm] for x in (o, d, beta, radiance, acc, alive,
+                                                  spec, pixel, sample, depth,
+                                                  chunk_left))
+            was_alive = alive
+            o, d, beta, radiance, alive, spec, n = bounce_core(
+                scene, settings, o, d, beta, radiance, alive, spec,
+                pixel, sample, depth,
+            )
+            n_rays = n_rays + n
+            iters += 1
+            depth = depth + 1
+            # Depth cap (reference: while depth <= 16 -> max_depth bounces).
+            alive = alive & (depth < settings.max_depth)
 
-        # A lane whose path ended folds the path's radiance, clamped per
-        # channel per path as the reference accumulator does, into its
-        # chunk sum; with samples left in its chunk it re-aims in place.
-        died = was_alive & ~alive
-        cont = died & (chunk_left > 1)
-        finished = died & ~cont
-        acc = acc + torch.where(died[:, None], torch.clamp(radiance, min=0.0), 0.0)
-        radiance = torch.where(died[:, None], 0.0, radiance)
+            # A lane whose path ended folds the path's radiance, clamped per
+            # channel per path as the reference accumulator does, into its
+            # chunk sum; with samples left in its chunk it re-aims in place.
+            died = was_alive & ~alive
+            cont = died & (chunk_left > 1)
+            finished = died & ~cont
+            acc = acc + torch.where(died[:, None], torch.clamp(radiance, min=0.0), 0.0)
+            radiance = torch.where(died[:, None], 0.0, radiance)
 
-        # Every finished chunk flushes now, in one scatter-add.
-        done = torch.nonzero(finished).squeeze(1)
-        image.index_add_(0, pixel[done], acc[done])
-        acc = torch.where(finished[:, None], 0.0, acc)
+            # Every finished chunk flushes now, in one scatter-add.
+            with span("pt.sync"):
+                done = torch.nonzero(finished).squeeze(1)
+            image.index_add_(0, pixel[done], acc[done])
+            acc = torch.where(finished[:, None], 0.0, acc)
 
-        # Finished lanes take fresh chunk-start ids from the global counter.
-        rank = torch.cumsum(finished.to(torch.int64), dim=0) - 1
-        new_ids = next_id + rank * k_chunk
-        take = finished & (new_ids < limit)
-        next_id = min(next_id + done.shape[0] * k_chunk, limit)
+            # Finished lanes take fresh chunk-start ids from the global counter.
+            rank = torch.cumsum(finished.to(torch.int64), dim=0) - 1
+            new_ids = next_id + rank * k_chunk
+            take = finished & (new_ids < limit)
+            next_id = min(next_id + done.shape[0] * k_chunk, limit)
 
-        n_pixel, n_sample, n_count = chunk_info(new_ids)
-        # One camera-ray generation serves fresh chunks and continuations.
-        r_pixel = torch.where(take, n_pixel, pixel)
-        r_sample = torch.where(take, n_sample, sample + 1)
-        r_o, r_d = cam(r_pixel, r_sample)
+            n_pixel, n_sample, n_count = chunk_info(new_ids)
+            # One camera-ray generation serves fresh chunks and continuations.
+            r_pixel = torch.where(take, n_pixel, pixel)
+            r_sample = torch.where(take, n_sample, sample + 1)
+            r_o, r_d = cam(r_pixel, r_sample)
 
-        resp = take | cont
-        sel = resp[:, None]
-        o = torch.where(sel, r_o, o)
-        d = torch.where(sel, r_d, d)
-        beta = torch.where(sel, 1.0, beta)
-        alive = alive | resp
-        spec = spec & ~resp
-        pixel = r_pixel
-        sample = torch.where(resp, r_sample, sample)
-        depth = torch.where(resp, 0, depth)
-        chunk_left = torch.where(
-            take, n_count, torch.where(cont, chunk_left - 1, chunk_left)
-        )
+            resp = take | cont
+            sel = resp[:, None]
+            o = torch.where(sel, r_o, o)
+            d = torch.where(sel, r_d, d)
+            beta = torch.where(sel, 1.0, beta)
+            alive = alive | resp
+            spec = spec & ~resp
+            pixel = r_pixel
+            sample = torch.where(resp, r_sample, sample)
+            depth = torch.where(resp, 0, depth)
+            chunk_left = torch.where(
+                take, n_count, torch.where(cont, chunk_left - 1, chunk_left)
+            )
     return image, n_rays, iters
 
 

@@ -9,7 +9,32 @@ counter (the integrator counts live-lane rays, ops.integrator), plus:
 - ``trace``: context manager around ``torch.profiler`` that writes a Chrome
   trace (``trace.json``, viewable in Perfetto or chrome://tracing) into a
   directory;
-- ``RenderStats``: rays/paths/iterations throughput record.
+- ``RenderStats``: rays/paths/iterations throughput record;
+- ``span``: a named ``torch.profiler`` range around a piece of the program,
+  entered only while a profiler runs, so the ranges land on the profiler's
+  timeline beside the card's kernels.
+
+The spans (every name starts with ``pt.``; none may start with ``cu`` or
+``bench.``, which readers of a trace take for launches and for their own
+ranges):
+
+- ``pt.train_step``: one whole step of ``inverse.make_train_step``;
+- ``pt.bounce``: one bounce, ``ops.integrator.bounce_core``; under path
+  replay it runs in the forward pass and again, on the autograd engine's
+  thread, in the backward pass;
+- ``pt.intersect``: one intersection call, ``ops.intersect.closest_hit``
+  (with its material lookup) or ``occluded_before``: the wrapper's torch ops
+  and its kernel;
+- ``pt.gather_backward``: the backward of a material gather
+  (``ops.gather.gather_rows``), summing the path gradients into the material
+  rows; it runs on the autograd engine's thread;
+- ``pt.sync``: one host wait for the device that the program makes on
+  purpose: ``bool(torch.any(alive))`` after each bounce of
+  ``ops.integrator.radiance_batch_stats`` and at the top of each iteration
+  of ``ops.wavefront.render_pool``, and the pool's ``torch.nonzero`` of its
+  finished lanes;
+- ``pt.pool_iter``: the body of one iteration of
+  ``ops.wavefront.render_pool``.
 """
 
 from __future__ import annotations
@@ -55,6 +80,18 @@ def timed(result: dict, key: str = "wall_s"):
     if isinstance(block_on, torch.Tensor) and block_on.is_cuda:
         torch.cuda.synchronize(block_on.device)
     result[key] = time.perf_counter() - t0
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs; otherwise a shared no-op context, since a range entered
+    without a profiler still costs several microseconds."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

@@ -398,3 +398,55 @@ def test_sharded_train_step_on_one_card_equals_unsharded(cuda):
              pix, torch.zeros_like(pix), torch.ones_like(pix))
         grads.append({k: p.grad for k, p in params.items()})
     _assert_grads_close(grads[1], grads[0], 1e-5)
+
+
+def test_spans_on_card_read_by_the_benchmark(cuda, monkeypatch):
+    """A 64x64 paired step traced on the card and reduced by the
+    benchmark's harness: each reader of the port's spans finds a value, the
+    gather backward's span is recorded on the autograd engine's thread and
+    encloses the launch of every index-backward kernel, no span is taken for
+    a kernel, and the gradients are the bits of autograd's own backward of
+    ``table[ids]`` (``gather_rows`` replaced by plain indexing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import harness, spans
+    from pathtracer_tpu_torch import inverse
+    from pathtracer_tpu_torch.ops import lights
+    from pathtracer_tpu_torch.ops.camera_rays import ray_frame_tensors
+
+    scene, camera = procedural.cornell_box_scene(device=cuda)
+    st = RenderSettings(width=64, height=64, max_depth=6)
+    n = st.width * st.height
+    target = torch.as_tensor(np.random.default_rng(0).uniform(0.0, 0.6, (n, 3)),
+                             dtype=torch.float32, device=cuda)
+    pix = torch.arange(n, device=cuda)
+    frame = ray_frame_tensors(camera, st.width, st.height, cuda)
+
+    def grads():
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in inverse.material_params(scene).items()}
+        step = inverse.make_train_step(st, torch.optim.SGD(list(params.values()), lr=0.0))
+        step(params, scene, frame, target, pix, torch.zeros_like(pix), torch.ones_like(pix))
+        return {k: p.grad for k, p in params.items()}
+
+    grads()  # warm-up: the kernels' build
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = []
+        harness.run_window(lambda i: out.append(grads()), 0.0, torch.cuda.synchronize,
+                           traced=True)
+    trace = harness.trace_from_profiler(prof, {})
+    read = {name: harness.metric_reader(name)(trace) for name in (
+        "gather_backward_ms.train", "bounce_idle_ms.train", "intersect_device_ms.train",
+        "host_syncs_per_step.train")}
+    assert all(v is not None for v in read.values()), read
+    assert read["gather_backward_ms.train"] > 0 and read["intersect_device_ms.train"] > 0
+    assert not any(name.startswith("pt.") for name in trace.names)
+    assert "pt.gather_backward" in trace.host[2]
+    index_bw = np.array(["indexing_backward_kernel" in name for name in trace.names])
+    assert index_bw.any()
+    assert spans.launched_in(trace, "pt.gather_backward")[index_bw].all()
+    for mod in (tint, lights):
+        monkeypatch.setattr(mod, "gather_rows", lambda t, i: t[i])
+    plain = grads()
+    for k, g in plain.items():
+        assert torch.equal(out[0][k], g), k
