@@ -1558,13 +1558,16 @@ def grad_errors(grads, ref) -> dict:
 
 
 def check_replay(label, fwd, total, family: str) -> None:
-    """The kernel ``family`` launched in the forward pass, and each bounce's
-    closest hit once more in the replay."""
+    """The kernel ``family`` launched in the forward pass, each bounce's
+    closest hit once more in the replay, and the gather backward's kernel in
+    the backward pass."""
     f, t = fwd[family], total[family]
     assert all(v > 0 for v in f.values()), f"{label}: {family} kernel not launched: {f}"
     assert t["closest"] == 2 * f["closest"], f"{label}: replay launches {t} vs forward {f}"
     assert t["occluded"] > f["occluded"], f"{label}: no any-hit launch in the replay: {t}"
-    assert not any(v for fam, c in total.items() if fam != family for v in c.values()), total
+    assert total["gather_backward"]["sum"] > 0, f"{label}: no segment-sum kernel: {total}"
+    assert not any(v for fam, c in total.items() if fam not in (family, "gather_backward")
+                   for v in c.values()), total
 
 
 def inverse_card_vs_cpu(dev) -> None:
@@ -1680,17 +1683,7 @@ def inverse_full(dev) -> None:
         f"and replay), device busy {busy:.3f} ms, busy share {busy / (wall * 1e3):.4f} of "
         f"the first step's wall; most device time: {top_kernels(spans)}")
 
-    # One material gather's backward alone, at the step's lanes: the gradient
-    # of scene.mat_Kd[mat_id] (ops.intersect.material_lookup) with the
-    # Cornell box's material ids at the first bounce.
-    ids = torch.randint(0, scene.mat_Kd.shape[0], (st.width * st.height,), device=dev,
-                        generator=torch.Generator(dev).manual_seed(0))
-    table = scene.mat_Kd.detach().clone().requires_grad_(True)
-    w = torch.rand((ids.shape[0], 3), device=dev, generator=torch.Generator(dev).manual_seed(1))
-    gather_ms = event_ms(lambda: torch.autograd.grad((table[ids] * w).sum(), table), n=5)
-    log("inverse", f"(b) one gather's backward alone (a [{ids.shape[0]}, 3] gather from the "
-        f"[{table.shape[0]}, 3] albedo table by id, its gradient by index_put_ with "
-        f"accumulate): {gather_ms:.3f} ms (events, mean of 5)")
+    gather_backward_kernel(dev, scene.mat_Kd.shape[0], st.width * st.height)
 
     kept = {k: v.clone().requires_grad_(True) for k, v in first.items()}
     torch.cuda.reset_peak_memory_stats()
@@ -1704,6 +1697,50 @@ def inverse_full(dev) -> None:
         f"intermediates kept): peak {peak_k / 2**30:.3f} GiB ({peak_k / peak:.1f}x the "
         f"step's) in {wall_k:.4f} s; grads agree with the step's, largest difference over "
         f"max |g| {err} (tolerance {GRAD_TOL_ROUTE})")
+
+
+def gather_backward_kernel(dev, m: int, rows: int) -> None:
+    """(b) One material gather's backward alone, at the step's lanes: the
+    segment-sum kernel (``ops.gather.segment_sum``) summing [rows, k] path
+    gradients into an [m, k] table (k = 3: Kd, Ks, Ke; k = 1: Ns), ids
+    uniform over the table, against the same sum in float64 (within 1e-5 of
+    each element's sum of |terms|) and in five calls' bits; its time (a CUDA
+    graph of 100 calls: the wrapper's host time exceeds the kernel's) beside
+    the byte bound (each input read once, the table written once, at 3.35
+    TB/s) and the plain version's on the card (a zero table and
+    ``_index_put_impl_`` with accumulate, autograd's own backward: events,
+    mean of 5); ptxas's registers and spills."""
+    from pathtracer_tpu_torch.ops.gather import segment_sum
+
+    g = torch.Generator(dev).manual_seed(0)
+    ids = torch.randint(0, m, (rows,), device=dev, generator=g)
+    for shape in ((m, 3), (m,)):
+        grad = torch.randn((rows, *shape[1:]), device=dev, generator=g)
+        runs = [segment_sum(grad, ids, shape) for _ in range(5)]
+        assert all(torch.equal(r, runs[0]) for r in runs[1:]), f"{shape}: bits differ"
+        zero = torch.zeros(shape, dtype=torch.float64, device=dev)
+        err = ((runs[0].double() - zero.index_add(0, ids, grad.double())).abs()
+               / zero.index_add(0, ids, grad.abs().double()).clamp_min(1e-300)).max().item()
+        assert err <= 1e-5, f"{shape}: relative error {err}"
+
+        def plain():
+            out = grad.new_zeros(shape)
+            torch.ops.aten._index_put_impl_(out, [ids], grad, True, True)
+            return out
+
+        ms = graph_ms(lambda: segment_sum(grad, ids, shape))
+        plain_ms = event_ms(plain, n=5)
+        nbytes = grad.numel() * 4 + ids.numel() * 8 + runs[0].numel() * 4
+        bound = nbytes / 3.35e12 * 1e3
+        log("inverse", f"(b) segment-sum kernel, [{rows}, {grad.numel() // rows}] rows into "
+            f"{list(shape)}: {ms * 1e3:.2f} us (graph of 100), bound {bound * 1e3:.3f} us "
+            f"({nbytes} bytes), share {bound / ms:.4f}; plain _index_put_impl_ "
+            f"{plain_ms:.3f} ms (events, mean of 5); five calls bit-equal, error over the "
+            f"sum of |terms| {err:.3g}")
+    for entry, lines in ptxas_report().items():
+        if "segment_sum" in entry:
+            assert not any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines), lines
+            log("inverse", f"ptxas {entry}: {'; '.join(lines)}")
 
 
 def inverse_routes(dev) -> None:
@@ -1726,7 +1763,9 @@ def inverse_routes(dev) -> None:
             lambda: replayed_grads(scene, camera, RenderSettings(**INVERSE_ROUTES,
                                                                  intersector=plain),
                                    forward=False))
-        assert not any(v for c in total_p.values() for v in c.values()), total_p
+        assert total_p["gather_backward"]["sum"] > 0, total_p
+        assert not any(v for f, c in total_p.items() if f != "gather_backward"
+                       for v in c.values()), total_p
         err = grad_errors(grads, grads_p)
         assert all(e <= GRAD_TOL_ROUTE for e in err.values()), (label, err)
         log("inverse", f"(c) {label} ({scene.num_tris} triangles) {st.width}^2 depth "

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "pt_cluster_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_cluster_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_cluster_blocks_per_sm": ([_I, _I], _I),
+    "pt_segment_sum_blocks": ([_I, _I, _I], _I),
+    "pt_segment_sum": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
     "pt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -151,9 +153,11 @@ def check(rc: int, what: str) -> None:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch counts by family, each ``{"closest": n,
-    "occluded": n}`` (the wrappers count where they launch their kernel)."""
+    """Every kernel's launch counts by family: the intersection kernels'
+    ``{"closest": n, "occluded": n}``, the gather backward's ``{"sum": n}``
+    (the wrappers count where they launch their kernel)."""
     from pathtracer_tpu_torch.ops import (
+        gather,
         intersect_cluster,
         intersect_shortlist_kernel,
         intersect_small,
@@ -161,7 +165,8 @@ def launch_counts() -> dict:
     )
 
     return {"small": intersect_small.launches, "shortlist": intersect_shortlist_kernel.launches,
-            "tiled": intersect_tiled.launches, "cluster": intersect_cluster.launches}
+            "tiled": intersect_tiled.launches, "cluster": intersect_cluster.launches,
+            "gather_backward": gather.launches}
 
 
 def reset_launches() -> None:
