@@ -24,6 +24,13 @@ The optimizer is a ``torch.optim`` one (optax is absent on the card): by
 default Adam with ``cosine_decay_schedule``, optax's cosine decay. With a
 mesh (``parallel.mesh``) the step is data-parallel: each shard differentiates
 its slice of the rows, and the gradients sum once over shards and processes.
+
+On a CUDA device the unsharded step replays ``loss_and_grads`` as one CUDA
+graph: a step is tens of thousands of small kernels, whose launches one by
+one cost the host more than the card takes to run them. The first step of
+each capture key (``make_train_step``) runs eagerly, the second captures the
+graph, and every later one copies its rows and sample ids into the graph's
+inputs and replays it; the optimizer and the clip run eagerly after it.
 """
 
 from __future__ import annotations
@@ -218,6 +225,98 @@ def _sharded_loss_and_grads(params, scene, settings, frame, target_rows, pixel_i
     return loss, {k: all_reduce(g, mesh) / mesh.size for k, g in grads.items()}
 
 
+# Steps of ``make_train_step`` by how ``loss_and_grads`` ran (``graph_counts``).
+_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager": 0}
+
+
+def graph_counts() -> dict:
+    """How the process's training steps (``make_train_step``) ran so far:
+    ``eager`` steps dispatched their ops one by one (every step on the CPU
+    and over a mesh; on CUDA the first step of each capture key),
+    ``captures`` recorded ``loss_and_grads`` into a CUDA graph and
+    ``replays`` replayed one. A capturing step replays what it recorded, so
+    it counts in both."""
+    return dict(_GRAPH_COUNTS)
+
+
+def _key_part(v):
+    """A value's part of a capture key: a tensor by address and layout, a
+    dict (the scene's cache) by identity, anything else by value."""
+    if isinstance(v, torch.Tensor):
+        return (v.data_ptr(), tuple(v.shape), v.dtype, v.device)
+    return id(v) if isinstance(v, dict) else v
+
+
+def _capture_key(params, scene, frame, inputs) -> tuple:
+    """What a captured step reads by address (the params, the scene's
+    fields and tables, the frame) and the layout of what it copies in (the
+    rows and ids): a step whose key differs cannot replay the graph."""
+    return (
+        tuple((k, id(p), p.requires_grad, _key_part(p)) for k, p in params.items()),
+        tuple(_key_part(getattr(scene, f.name)) for f in dataclasses.fields(scene)
+              if f.name not in params),
+        tuple((k, _key_part(v)) for k, v in frame.items()),
+        tuple((tuple(x.shape), x.dtype, x.device) for x in inputs),
+    )
+
+
+class _GraphedLossAndGrads:
+    """``loss_and_grads`` of one training step, replayed from a CUDA graph.
+
+    One graph at a time, for the capture key it was recorded under. A step
+    with a new key frees the graph and runs eagerly on a side stream (as
+    torch's CUDA graphs want before a capture; it also fills ``scene.cache``
+    and builds the kernels); the next step with that key captures. The graph
+    keeps the objects it reads by address alive (``held``)."""
+
+    def __init__(self, settings, loss_space):
+        self.settings, self.loss_space = settings, loss_space
+        self.key = self.held = self.graph = self.inputs = self.loss = self.grads = None
+
+    def _drop(self):
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.inputs = self.loss = self.grads = None
+
+    def __call__(self, params, scene, frame, inputs):
+        key = _capture_key(params, scene, frame, inputs)
+        if key != self.key:
+            self._drop()
+            self.key, self.held = key, (dict(params), scene, dict(frame))
+            return self._eager(params, scene, frame, inputs)
+        if self.graph is None:
+            self._capture(params, scene, frame, inputs)
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
+        with span("pt.graph_replay"):
+            self.graph.replay()
+        _GRAPH_COUNTS["replays"] += 1
+        # Fresh tensors: the next replay overwrites the graph's outputs.
+        return self.loss.clone(), {k: g.clone() for k, g in self.grads.items()}
+
+    def _eager(self, params, scene, frame, inputs):
+        main = torch.cuda.current_stream(inputs[0].device)
+        side = torch.cuda.Stream(inputs[0].device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loss, grads = loss_and_grads(params, scene, self.settings, frame, *inputs,
+                                         self.loss_space)
+        main.wait_stream(side)
+        for t in (loss, *grads.values()):
+            t.record_stream(main)
+        _GRAPH_COUNTS["eager"] += 1
+        return loss, grads
+
+    def _capture(self, params, scene, frame, inputs):
+        self.inputs = [x.clone() for x in inputs]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.loss, self.grads = loss_and_grads(params, scene, self.settings, frame,
+                                                   *self.inputs, self.loss_space)
+        self.graph = graph
+        _GRAPH_COUNTS["captures"] += 1
+
+
 def make_train_step(settings, optimizer, mesh=None, loss_space="radiance"):
     """A training step over material params.
 
@@ -240,17 +339,30 @@ def make_train_step(settings, optimizer, mesh=None, loss_space="radiance"):
     processes) and divide by ``mesh.size``, as the loss does: the mean of the
     shard means. The update then runs once on the params, which every
     process holds alike.
+
+    Without a mesh, on a CUDA device, ``loss_and_grads`` runs as one CUDA
+    graph (module docstring): the step's first call with a new capture key
+    (the params' and the scene's tensors by identity and address, the
+    frame's, the inputs' shapes, dtypes and device) runs eagerly, the second
+    captures, later ones replay. The params change in place between steps
+    and the graph reads them there; the rows and sample ids are copied in on
+    every call. Each call returns a loss tensor of its own.
     """
     if loss_space not in _OBJECTIVES:
         raise ValueError(f"unknown loss_space {loss_space!r}")
+    graphed = _GraphedLossAndGrads(settings, loss_space)
 
     def train_step(params, scene, frame, target_rows, pixel_ids, sample_ids_a,
                    sample_ids_b):
-        args = (params, scene, settings, frame, target_rows, pixel_ids, sample_ids_a,
-                sample_ids_b, loss_space)
+        inputs = (target_rows, pixel_ids, sample_ids_a, sample_ids_b)
         with span("pt.train_step"):
-            loss, grads = (loss_and_grads(*args) if mesh is None
-                           else _sharded_loss_and_grads(*args, mesh=mesh))
+            if mesh is None and next(iter(params.values())).is_cuda:
+                loss, grads = graphed(params, scene, frame, inputs)
+            else:
+                args = (params, scene, settings, frame, *inputs, loss_space)
+                loss, grads = (loss_and_grads(*args) if mesh is None
+                               else _sharded_loss_and_grads(*args, mesh=mesh))
+                _GRAPH_COUNTS["eager"] += 1
             for k, p in params.items():
                 p.grad = grads[k]
             optimizer.step()

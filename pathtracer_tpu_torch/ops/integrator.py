@@ -40,7 +40,7 @@ from pathtracer_tpu_torch.ops.bsdf import (
     reflect,
     sample_cosine_hemisphere,
 )
-from pathtracer_tpu_torch.ops.intersect import closest_hit, occluded_before
+from pathtracer_tpu_torch.ops.intersect import closest_hit, occluded_before, unit_axis
 from pathtracer_tpu_torch.ops.lights import (
     sample_area_lights,
     sample_area_lights_detailed,
@@ -60,11 +60,16 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def capturing(x) -> bool:
+    """Whether the work on ``x``'s device is being captured into a CUDA
+    graph: then nothing may wait for the card."""
+    return x.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def _park_rays(o, d, live):
     dead = ~live[:, None]
     o = torch.where(dead, _PARK_POS, o)
-    d = torch.where(dead, torch.tensor([1.0, 0.0, 0.0], dtype=o.dtype,
-                                       device=o.device), d)
+    d = torch.where(dead, unit_axis(0, o), d)
     return o, d
 
 
@@ -245,10 +250,13 @@ def radiance_batch_stats(scene, settings, o, d, pixel_ids, sample_ids):
     """Radiance [B, 3] plus the number of rays traced (int64 tensor).
 
     ``max_depth`` bounces as a Python loop; it stops early once every lane
-    is dead, which changes neither result nor gradient (a dead lane adds
-    nothing). With grad enabled and a scene tensor requiring grad, each
-    bounce runs under ``torch.utils.checkpoint`` (path replay, see the
-    module docstring).
+    is dead, which changes neither result nor gradient: a dead lane adds
+    exact zeros (its selects keep its state, its radiance adds 0.0, its rows
+    of the gathers' backward are zero). The test waits for the card, so
+    while the stream is being captured into a CUDA graph every bounce runs.
+    With grad enabled and a scene tensor requiring grad, each bounce runs
+    under ``torch.utils.checkpoint`` (path replay, see the module
+    docstring).
     """
     beta = torch.ones_like(o)
     radiance = torch.zeros_like(o)
@@ -269,6 +277,8 @@ def radiance_batch_stats(scene, settings, o, d, pixel_ids, sample_ids):
             out = bounce_core(*args)
         o, d, beta, radiance, alive, spec, dn = out
         n_rays = n_rays + dn
+        if capturing(alive):
+            continue
         with span("pt.sync"):
             if not bool(torch.any(alive)):
                 break

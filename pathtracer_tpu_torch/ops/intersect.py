@@ -93,6 +93,25 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+# [3] unit vectors by (axis, dtype, device), built on the device (a copy of
+# host values would wait for the card) and kept.
+_UNIT: dict = {}
+
+
+def unit_axis(axis: int, like) -> torch.Tensor:
+    """The [3] unit vector along ``axis`` in ``like``'s dtype and device.
+    While the device's stream is being captured into a CUDA graph a new one
+    is built in the graph (its values exist only once the graph runs) and is
+    not kept."""
+    key = (axis, like.dtype, like.device)
+    u = _UNIT.get(key)
+    if u is None:
+        u = torch.eye(3, dtype=like.dtype, device=like.device)[axis]
+        if not (like.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _UNIT[key] = u
+    return u
+
+
 def mt_components(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z, e1x, e1y, e1z,
                   e2x, e2y, e2z, valid):
     """Moller-Trumbore on broadcastable ray and triangle components ->
@@ -427,7 +446,7 @@ def closest_hit(scene, o, d, settings):
             for k, v in material_lookup(scene, mat_id).items()
         }
         # Sanitize miss lanes.
-        unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=o.dtype, device=o.device)
+        unit_z = unit_axis(2, o)
         n_geo = torch.where(hit[:, None], n_geo, unit_z)
         n_shade = torch.where(hit[:, None], n_shade, unit_z)
         mat["Ni"] = torch.where(hit, mat["Ni"], 1.0)

@@ -34,7 +34,7 @@ def sample_triangle_barycentric(u1, u2):
 def _choose_emissive(scene, x, u_choice, compat_count_pdf: bool):
     """Pick an emissive-table index per lane -> (j [B] i64, weight [B])."""
     n_emissive = max(scene.num_emissive, 1)
-    n_f = torch.tensor(n_emissive, dtype=x.dtype, device=x.device)
+    n_f = float(n_emissive)  # a scalar argument: exact in x's float type
     if compat_count_pdf:
         j = torch.clamp((u_choice * n_f).to(torch.int64), max=n_emissive - 1)
         weight = torch.full((x.shape[0],), 1.0, dtype=x.dtype, device=x.device) / n_f

@@ -58,7 +58,8 @@ _XM = 0x7FEB352D  # single-round mixer multiplier (degski/xmx)
 
 
 def _mul32(x, c: int):
-    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a u32 constant c."""
+    """(x * c) mod 2^32 for int64 x (or an int) in [0, 2^32) and a u32
+    constant c."""
     lo = x * (c & 0xFFFF)
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _MASK
@@ -86,7 +87,12 @@ def _seed_mix(seed: int) -> int:
 
 
 def _u32(x, like: torch.Tensor):
-    """Int, or integer tensor, as int64 u32 bits (negatives wrap like astype)."""
+    """Int, or integer tensor, as u32 bits (negatives wrap like astype): an
+    int stays an int, which the ops below take as a scalar argument (a copy
+    to the card would wait for it), a tensor becomes int64 on ``like``'s
+    device."""
+    if isinstance(x, int):
+        return x & _MASK
     return torch.as_tensor(x, dtype=torch.int64, device=like.device) & _MASK
 
 

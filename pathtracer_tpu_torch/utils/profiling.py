@@ -19,6 +19,9 @@ The spans (every name starts with ``pt.``; none may start with ``cu`` or
 ranges):
 
 - ``pt.train_step``: one whole step of ``inverse.make_train_step``;
+- ``pt.graph_replay``: the replay of a step's captured CUDA graph inside
+  ``pt.train_step`` (``inverse.make_train_step`` on CUDA). A replay runs no
+  Python, so the spans below do not open for the kernels it launches;
 - ``pt.bounce``: one bounce, ``ops.integrator.bounce_core``; under path
   replay it runs in the forward pass and again, on the autograd engine's
   thread, in the backward pass;
@@ -30,7 +33,8 @@ ranges):
   rows; it runs on the autograd engine's thread;
 - ``pt.sync``: one host wait for the device that the program makes on
   purpose: ``bool(torch.any(alive))`` after each bounce of
-  ``ops.integrator.radiance_batch_stats`` and at the top of each iteration
+  ``ops.integrator.radiance_batch_stats`` (not while a CUDA graph is being
+  captured) and at the top of each iteration
   of ``ops.wavefront.render_pool``, and the pool's ``torch.nonzero`` of its
   finished lanes;
 - ``pt.pool_iter``: the body of one iteration of

@@ -2,9 +2,10 @@
 
     python sync_audit.py [--size 512] [--spp 50] [--out FILE]
 
-Runs, on the Cornell box (depth 17, rr 0.9, ``auto``): two paired training
+Runs, on the Cornell box (depth 17, rr 0.9, ``auto``): three paired training
 steps of ``inverse.make_train_step`` (every pixel, two 1-spp waves, Adam;
-the first is set-up: the kernels' build and first use) and one pool render
+the first is set-up: the kernels' build and first use, eagerly; the second
+captures the step's CUDA graph; the third replays it) and one pool render
 (``render.render_stats``, the regenerative pool), each under
 ``torch.cuda.set_sync_debug_mode("warn")`` and ``torch.profiler``. For each
 it prints one JSON object (``--out`` also writes the list to a file):
@@ -82,7 +83,7 @@ def audit(label: str, fn) -> dict:
     under = {}
 
     def show(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing" in str(message):
+        if "called a synchronizing CUDA operation" in str(message):
             site, in_span = _program_line(filename, lineno)
             warned[site] += 1
             under[site] = in_span
@@ -135,7 +136,8 @@ def main(argv=None) -> int:
         return lambda: step(params, scene, frame, target, pix, torch.full_like(pix, 2 * i),
                             torch.full_like(pix, 2 * i + 1))
 
-    results = [audit("fit step 0 (set-up)", train(0)), audit("fit step 1", train(1)),
+    results = [audit("fit step 0 (set-up)", train(0)), audit("fit step 1 (capture)", train(1)),
+               audit("fit step 2 (replay)", train(2)),
                audit("pool render", lambda: render_stats(scene, camera, st))]
     results.append({"device": torch.cuda.get_device_name(0), "size": args.size,
                     "spp": args.spp, "torch": torch.__version__})
