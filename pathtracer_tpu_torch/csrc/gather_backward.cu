@@ -44,8 +44,8 @@
 // ids and writes m * k floats: at 262,144 rows, 5.24 MB for k = 3 and 3.15 MB
 // for k = 1, 1.57 and 0.94 us at 3.35 TB/s. At that size the time is the two
 // launches and the chain of dependent loads in a thread (ids, then values),
-// which a batch of kBatch rows issues together. Measured (chip_smoke.py phase
-// 16, an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6): 6.17 us into
+// which a batch of kBatch rows issues together. Measured (chip_smoke.py, an
+// NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6): 6.17 us into
 // [5, 3] and 5.94 us into [5], both launches, a CUDA graph of 100 calls.
 
 #include <stdint.h>

@@ -83,11 +83,4 @@ int pt_cluster_occluded(const float* o, const float* d, const float* t_cut,
                      occ, hit_any, stream);
 }
 
-// Resident blocks of kThreads per SM of the closest (any_hit 0) or any-hit
-// kernel over c clusters; negative on a CUDA error.
-int pt_cluster_blocks_per_sm(int c, int any_hit) {
-  return any_hit ? walk_blocks_per_sm(cluster_kernel<true>, c)
-                 : walk_blocks_per_sm(cluster_kernel<false>, c);
-}
-
 }  // extern "C"

@@ -69,8 +69,8 @@
 // Limit: 8 * next_pow2(C) bytes of keys; kMaxClusters = 16,384 clusters
 // (2,097,152 padded triangles, 128 KB of keys). The wrapper
 // (ops/intersect_shortlist_kernel.py) refuses scenes above its MAX_CLUSTERS
-// by name, and the entries here with an error; a card test and chip_smoke.py
-// hold the two limits equal through pt_shortlist_blocks_per_sm.
+// by name, and the entries here with an error; a card test holds the two
+// limits equal through pt_shortlist_blocks_per_sm.
 //
 // Exactness. hit_triangle and the slab test are ray_triangle.cuh's, shared
 // with the other kernels and built with -fmad=false; the slab keeps the JAX
@@ -84,7 +84,8 @@
 // are the bound's work; the slab tests, the argmins, the lanes idle in dense
 // sweeps and the clusters a ray tests though it hits nearer are what the
 // kernel does beyond it. The key pass grows with C: about a fifth of the
-// time at 100 clusters, about half at 516 (shortlist_variants.py).
+// time at 100 clusters, about half at 516 (shortlist_variants.py, in git at
+// 8f97b9d).
 
 #include "ray_triangle.cuh"
 
@@ -98,8 +99,8 @@ constexpr int kMaxClusters = 16384;
 // A cluster needed by at least this many lanes of a warp is swept one ray per
 // lane (sweep_rays); below, one ray at a time by the whole warp (sweep_rows):
 // 128 row tests cost the warp about as much as 28 rays' 4 tests and argmin.
-// shortlist_variants.py times the choice: sparse sweeps alone (33) or dense
-// alone (0) are slower on the torus stand-ins, thresholds 24-31 alike.
+// shortlist_variants.py (8f97b9d) timed the choice: sparse sweeps alone (33)
+// or dense alone (0) are slower on the torus stand-ins, thresholds 24-31 alike.
 constexpr int kDenseLanes = 28;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kInfBits = 0x7f800000u;  // +inf

@@ -52,10 +52,10 @@
 // the SMs), each block taking an equal share of the rays in chunks of
 // kThreads: no partial second wave if ptxas ever gives it more registers.
 //
-// Measured on the Cornell box, closest / any-hit (small_variants.py on an
-// NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md section 6): rows staged in
-// shared memory take 7-9% longer, rows read through
-// L1/L2 35-36%; without the skip 31-43%, with the skip per lane but no list
+// Measured on the Cornell box, closest / any-hit (small_variants.py, in git
+// at a09008f, on an NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md section 6):
+// rows staged in shared memory take 7-9% longer, rows read through L1/L2
+// 35-36%; without the skip 31-43%, with the skip per lane but no list
 // 14-25%; all 8-rounded rows 12%. 256 or 1024 threads a block take 1-6%
 // longer (256: 15% on the 250-triangle soup's closest); freeing the registers
 // (32 warps) 3-15%; unrolling the row loop spills and moves the time per
@@ -299,13 +299,6 @@ int pt_small_occluded(const float* o, const float* d, const float* t_cut,
                       unsigned long long* swept, void* stream) {
   return launch<true>(o, d, t_cut, table, table_host, box, count, n, nullptr, nullptr,
                       nullptr, nullptr, occ, hit_any, swept, stream);
-}
-
-// Resident warps per SM of the closest (any_hit 0) or any-hit kernel, as the
-// runtime computes them for a launch; negative on a CUDA error.
-int pt_small_warps_per_sm(int any_hit) {
-  const int blocks = any_hit ? blocks_per_sm<true>() : blocks_per_sm<false>();
-  return blocks < 0 ? blocks : blocks * kWarps;
 }
 
 const char* pt_error_string(int code) {

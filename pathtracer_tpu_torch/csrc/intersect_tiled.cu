@@ -30,7 +30,8 @@
 //
 // Rows. The whole table is at most 128 KB in the band (72 KB at 1,152 rows),
 // read through L1/L2; staging it in shared memory once per block measured
-// slower at 128 and at 512 threads a block (tiled_variants.py; PERF.md).
+// slower at 128 and at 512 threads a block (tiled_variants.py, in git at
+// d707472; PERF.md).
 //
 // What bounds it on the card: operations, issued per warp. Per needed (ray,
 // tile), 4 Moller-Trumbore tests a lane (46 flops and an IEEE division each)
@@ -70,13 +71,6 @@ int pt_tiled_occluded(const float* o, const float* d, const float* t_cut,
                       uint8_t* occ, uint8_t* hit_any, void* stream) {
   return launch_walk(tiled_kernel<true>, o, d, t_cut, table, bounds, c, n, nullptr, nullptr,
                      occ, hit_any, stream);
-}
-
-// Resident blocks of kThreads per SM of the closest (any_hit 0) or any-hit
-// kernel over c tiles; negative on a CUDA error.
-int pt_tiled_blocks_per_sm(int c, int any_hit) {
-  return any_hit ? walk_blocks_per_sm(tiled_kernel<true>, c)
-                 : walk_blocks_per_sm(tiled_kernel<false>, c);
 }
 
 }  // extern "C"

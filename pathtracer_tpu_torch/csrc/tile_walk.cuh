@@ -39,7 +39,7 @@
 // Rows. They are read in 16-byte loads through the read-only path, from L1 or
 // L2: in a dense sweep every lane reads the same row (a broadcast), in a
 // sparse one 32 consecutive rows. Staging them in shared memory measured
-// slower (tiled_variants.py; PERF.md).
+// slower (tiled_variants.py, in git at d707472; PERF.md).
 
 #pragma once
 
@@ -246,16 +246,6 @@ inline int launch_walk(WalkKernel kernel, const float* o, const float* d,
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       o, d, t_cut, table, bounds, c, n, t, tri_id, occ, hit_any);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Resident blocks of kThreads per SM of `kernel` over c tiles, as the runtime
-// computes them for a launch; negative on a CUDA error.
-inline int walk_blocks_per_sm(WalkKernel kernel, int c) {
-  if (c < 1) return -static_cast<int>(cudaErrorInvalidValue);
-  int blocks = 0;
-  const cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
-  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 }  // namespace

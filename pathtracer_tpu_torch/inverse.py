@@ -225,20 +225,6 @@ def _sharded_loss_and_grads(params, scene, settings, frame, target_rows, pixel_i
     return loss, {k: all_reduce(g, mesh) / mesh.size for k, g in grads.items()}
 
 
-# Steps of ``make_train_step`` by how ``loss_and_grads`` ran (``graph_counts``).
-_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager": 0}
-
-
-def graph_counts() -> dict:
-    """How the process's training steps (``make_train_step``) ran so far:
-    ``eager`` steps dispatched their ops one by one (every step on the CPU
-    and over a mesh; on CUDA the first step of each capture key),
-    ``captures`` recorded ``loss_and_grads`` into a CUDA graph and
-    ``replays`` replayed one. A capturing step replays what it recorded, so
-    it counts in both."""
-    return dict(_GRAPH_COUNTS)
-
-
 def _key_part(v):
     """A value's part of a capture key: a tensor by address and layout, a
     dict (the scene's cache) by identity, anything else by value."""
@@ -290,7 +276,6 @@ class _GraphedLossAndGrads:
             static.copy_(x)
         with span("pt.graph_replay"):
             self.graph.replay()
-        _GRAPH_COUNTS["replays"] += 1
         # Fresh tensors: the next replay overwrites the graph's outputs.
         return self.loss.clone(), {k: g.clone() for k, g in self.grads.items()}
 
@@ -304,7 +289,6 @@ class _GraphedLossAndGrads:
         main.wait_stream(side)
         for t in (loss, *grads.values()):
             t.record_stream(main)
-        _GRAPH_COUNTS["eager"] += 1
         return loss, grads
 
     def _capture(self, params, scene, frame, inputs):
@@ -314,7 +298,6 @@ class _GraphedLossAndGrads:
             self.loss, self.grads = loss_and_grads(params, scene, self.settings, frame,
                                                    *self.inputs, self.loss_space)
         self.graph = graph
-        _GRAPH_COUNTS["captures"] += 1
 
 
 def make_train_step(settings, optimizer, mesh=None, loss_space="radiance"):
@@ -362,7 +345,6 @@ def make_train_step(settings, optimizer, mesh=None, loss_space="radiance"):
                 args = (params, scene, settings, frame, *inputs, loss_space)
                 loss, grads = (loss_and_grads(*args) if mesh is None
                                else _sharded_loss_and_grads(*args, mesh=mesh))
-                _GRAPH_COUNTS["eager"] += 1
             for k, p in params.items():
                 p.grad = grads[k]
             optimizer.step()

@@ -19,7 +19,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,25 +35,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "pt_small_closest": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P], _I),
     "pt_small_occluded": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P], _I),
-    "pt_small_warps_per_sm": ([_I], _I),
     "pt_shortlist_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_shortlist_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P], _I),
     "pt_shortlist_blocks_per_sm": ([_I, _I], _I),
     "pt_tiled_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_tiled_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
-    "pt_tiled_blocks_per_sm": ([_I, _I], _I),
     "pt_cluster_closest": ([_P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_cluster_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
-    "pt_cluster_blocks_per_sm": ([_I, _I], _I),
     "pt_segment_sum_blocks": ([_I, _I, _I], _I),
     "pt_segment_sum": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
     "pt_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lib = None
-# Seconds the last build took (0.0 when the library was already built) and
-# nvcc's output, with ptxas's register and shared-memory report.
-build_seconds: float | None = None
+# nvcc's output of this process's build, with ptxas's register and
+# shared-memory report ("" when the library was already built).
 build_log = ""
 
 
@@ -101,16 +96,14 @@ def _run(procs) -> None:
 
 def build() -> str:
     """Compile the kernels if the library for these sources is missing."""
-    global build_seconds, build_log
+    global build_log
     out = library_path()
     if os.path.exists(out):
-        build_seconds = 0.0
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{out}.{os.getpid()}"
     nvcc = _nvcc()
     build_log = ""
-    t0 = time.perf_counter()
     objs, procs = [], []
     for src in (s for s in _sources() if s.endswith(".cu")):
         obj = f"{tag}.{os.path.basename(src)}.o"
@@ -127,7 +120,6 @@ def build() -> str:
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
-    build_seconds = time.perf_counter() - t0
     os.replace(f"{tag}.tmp", out)
     return out
 

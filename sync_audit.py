@@ -17,7 +17,9 @@ it prints one JSON object (``--out`` also writes the list to a file):
   the thread that called backward, so those count at the backward's line;
 - ``runtime``: the CUDA runtime's synchronizing calls in the profiler's
   trace (any thread, the kernels' library included), by the innermost
-  ``pt.*`` span and host op around each.
+  ``pt.*`` span and host op around each;
+- ``spans``: the ``pt.*`` spans opened, by name (a replayed step opens
+  ``pt.train_step`` and ``pt.graph_replay`` alone).
 
 Needs a CUDA device.
 """
@@ -99,10 +101,13 @@ def audit(label: str, fn) -> dict:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
+    spans = collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
+                                if e.name().startswith("pt.")
+                                and e.device_type() == torch.autograd.DeviceType.CPU)
     return {"audit": label, "syncs_warned": sum(warned.values()),
             "warned": [{"site": s, "count": c, "under_pt_sync": under[s]}
                        for s, c in warned.most_common()],
-            "runtime": dict(_runtime_syncs(prof).most_common())}
+            "runtime": dict(_runtime_syncs(prof).most_common()), "spans": dict(spans)}
 
 
 def main(argv=None) -> int:

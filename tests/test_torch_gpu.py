@@ -7,15 +7,18 @@ without one. On a machine with a card and without JAX:
 (the variable keeps tests/conftest.py from configuring JAX). Tolerances: the
 kernels' t is bit-equal to their plain versions' on the card (for the
 shortlist, tiled and cluster kernels also to the brute sweep's), ids and flags
-equal; renders as in chip_smoke.py phase 5. The threefry generator's bits on
-the card equal the CPU port's; the BVH oracle's t equals brute's. Inverse
-rendering's paired step: card vs CPU within 1e-3 of each field's largest
-|g|, a kernel route vs its plain route within 1e-4 (only the summation order
-of the index backward differs), as chip_smoke.py phase 16. Three shards on
-one card (``parallel``): the pool's rays equal and its image within rtol
-3e-5 / atol 3e-6 of the unsharded pool's, the scan bit-equal, a training
-step's gradients within 1e-5 of each field's largest |g|, as chip_smoke.py
-phase 17.
+equal; a render on the card traces the CPU port's rays, 99% of its pixels
+within 1e-4. The threefry generator's bits on the card equal the CPU port's;
+the BVH oracle's t equals brute's. Inverse rendering's paired step: card vs
+CPU within 1e-3 of each field's largest |g| (libm and summation order), a
+kernel route vs its plain route within 1e-4 (only the summation order of the
+gathers' backward differs). Three shards on one card (``parallel``): the
+pool's rays equal and its image within rtol 3e-5 / atol 3e-6 of the
+unsharded pool's, the scan bit-equal, a training step's gradients within
+1e-5 of each field's largest |g|. Whole paths on the card (the CLI, renders
+route against route, parallel/ across processes) are in
+``tests/test_torch_card_paths.py``; each kernel entry timed alone, with its
+launches in its cell, in ``chip_smoke.py``.
 """
 
 import dataclasses

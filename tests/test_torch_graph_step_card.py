@@ -10,10 +10,12 @@ bit for bit, an eager reference built from ``inverse.loss_and_grads``, the
 same Adam and ``project_params``; each returned loss is a tensor of its own;
 new sample ids change the loss; new param tensors or another row count (a
 smaller image's) capture again; a replayed step makes no host sync (``sync_audit.py``).
+How a step ran is read from the port's spans under a profiler (``_kinds``).
 """
 
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from pathtracer_tpu_torch import inverse
 from pathtracer_tpu_torch.models.procedural import cornell_box_scene
@@ -54,6 +56,24 @@ def _ids(pix, i):
     return torch.full_like(pix, 2 * i), torch.full_like(pix, 2 * i + 1)
 
 
+def _kinds(fn):
+    """``fn()`` under a profiler -> (its result, (eager, captures, replays)):
+    the training steps it ran, read from the port's spans. Each
+    ``pt.graph_replay`` is a replay. A ``pt.train_step`` holding a
+    ``pt.bounce`` ran ``loss_and_grads`` in Python: eagerly, or to capture
+    it, and then it replays too."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    ev = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+          for e in prof.profiler.kineto_results.events() if e.name().startswith("pt.")]
+    steps = [{n for n, s, e in ev if a <= s and e <= b}
+             for name, a, b in ev if name == "pt.train_step"]
+    python = ["pt.bounce" in inside for inside in steps]
+    replays = ["pt.graph_replay" in inside for inside in steps]
+    return out, (sum(p and not r for p, r in zip(python, replays)),
+                 sum(p and r for p, r in zip(python, replays)), sum(replays))
+
+
 @pytest.mark.parametrize("loss_space", ["radiance", "display"])
 def test_graphed_steps_equal_eager_steps(cuda, loss_space):
     scene, frame, pix, target = _problem(cuda, loss_space=loss_space)
@@ -61,10 +81,11 @@ def test_graphed_steps_equal_eager_steps(cuda, loss_space):
     opt = torch.optim.Adam(list(params.values()), lr=0.05)
     ref_opt = torch.optim.Adam(list(ref.values()), lr=0.05)
     step = inverse.make_train_step(SETTINGS, opt, loss_space=loss_space)
-    before = inverse.graph_counts()
-    losses = []
+    losses, kinds = [], []
     for i in range(STEPS):
-        losses.append(step(params, scene, frame, target, pix, *_ids(pix, i)))
+        loss, kind = _kinds(lambda: step(params, scene, frame, target, pix, *_ids(pix, i)))
+        losses.append(loss)
+        kinds.append(kind)
         ref_loss, grads = inverse.loss_and_grads(ref, scene, SETTINGS, frame, target, pix,
                                                  *_ids(pix, i), loss_space)
         for k, p in ref.items():
@@ -75,10 +96,7 @@ def test_graphed_steps_equal_eager_steps(cuda, loss_space):
         for k in ref:
             assert torch.equal(params[k].grad, ref[k].grad), (i, k)
             assert torch.equal(params[k], ref[k]), (i, k)
-    after = inverse.graph_counts()
-    assert after["eager"] - before["eager"] == 1
-    assert after["captures"] - before["captures"] == 1
-    assert after["replays"] - before["replays"] == STEPS - 1
+    assert kinds == [(1, 0, 0), (0, 1, 1)] + [(0, 0, 1)] * (STEPS - 2)
     # Each call returned a tensor of its own, with its own step's value.
     assert len({x.data_ptr() for x in losses}) == STEPS
     assert len({float(x) for x in losses}) == STEPS
@@ -91,11 +109,9 @@ def test_new_sample_ids_change_the_loss(cuda):
     step = inverse.make_train_step(SETTINGS, torch.optim.SGD(list(params.values()), lr=0.0))
     for i in range(2):  # eager, then capture
         step(params, scene, frame, target, pix, *_ids(pix, i))
-    before = inverse.graph_counts()
-    a = step(params, scene, frame, target, pix, *_ids(pix, 5))
-    b = step(params, scene, frame, target, pix, *_ids(pix, 6))
-    again = step(params, scene, frame, target, pix, *_ids(pix, 5))
-    assert inverse.graph_counts()["replays"] - before["replays"] == 3
+    (a, b, again), kinds = _kinds(lambda: [
+        step(params, scene, frame, target, pix, *_ids(pix, i)) for i in (5, 6, 5)])
+    assert kinds == (0, 0, 3)
     assert not torch.equal(a, b)
     assert torch.equal(a, again)
     want, _ = inverse.loss_and_grads(params, scene, SETTINGS, frame, target, pix,
@@ -109,11 +125,8 @@ def test_new_params_or_size_capture_again(cuda):
     step = inverse.make_train_step(SETTINGS, torch.optim.SGD(list(params.values()), lr=0.0))
 
     def run(p, px=pix, tg=target, n=3):
-        c0 = inverse.graph_counts()
-        for i in range(n):
-            step(p, scene, frame, tg, px, *_ids(px, i))
-        c1 = inverse.graph_counts()
-        return tuple(c1[k] - c0[k] for k in ("eager", "captures", "replays"))
+        return _kinds(lambda: [step(p, scene, frame, tg, px, *_ids(px, i))
+                               for i in range(n)])[1]
 
     assert run(params) == (1, 1, 2)
     assert run(params) == (0, 0, 3)  # the same key: replays only
@@ -131,10 +144,9 @@ def test_replayed_step_makes_no_host_sync(cuda):
     step = inverse.make_train_step(SETTINGS, torch.optim.Adam(list(params.values()), lr=0.05))
     for i in range(2):
         step(params, scene, frame, target, pix, *_ids(pix, i))
-    before = inverse.graph_counts()
     got = sync_audit.audit("replay", lambda: step(params, scene, frame, target, pix,
                                                   *_ids(pix, 2)))
-    assert inverse.graph_counts()["replays"] - before["replays"] == 1
+    assert got["spans"] == {"pt.train_step": 1, "pt.graph_replay": 1}, got["spans"]
     assert got["syncs_warned"] == 0, got["warned"]
     # The audit's own synchronize after the step lies outside every pt.* span.
     assert all(" in - / " in k for k in got["runtime"]), got["runtime"]

@@ -4,16 +4,17 @@ The twin of ``tests/test_perf_canary.py`` for ``pathtracer_tpu_torch``: it
 runs ``bench_torch.py`` (CornellBox 512x512, spp 8, regen, the small kernel
 through ``auto``, three timed renders, the best reported) in a subprocess on
 the card and fails if the rays traced differ from the count that run traced
-in ``chip_smoke.py`` phase 18, or if rays/s falls below a floor. It needs a CUDA
-device and skips without one; on a machine with a card and without JAX:
+in ``chip_smoke.py``'s former phase 18 (since removed), or if rays/s falls
+below a floor. It needs a CUDA device and skips without one; on a machine
+with a card and without JAX:
 
     PT_TPU_TEST_REAL_DEVICE=1 python -m pytest tests/test_torch_perf_canary.py -m gpu
 
 The floor is half the lowest rays/s of ``bench_torch.py --spp 8
 --no-sharded`` measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power
-limit (``chip_smoke.py`` phase 18's "canary" run in two calls, and the
-same command in a third): 28.24, 21.50 and 41.44 Mray/s. Walls of the same
-code differ by up to 2x across calls (the render is host-bound), so half
+limit (``chip_smoke.py``'s former phase 18's "canary" run in two calls, and
+the same command in a third): 28.24, 21.50 and 41.44 Mray/s. Walls of the
+same code differ by up to 2x across calls (the render is host-bound), so half
 is the margin; a card set below 700 W runs slower still.
 """
 
@@ -27,7 +28,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# Cornell 512^2 spp 8 regen: the rays phase 18 traced (in 45 pool iterations).
+# Cornell 512^2 spp 8 regen: the rays the former phase 18 traced (in 45 pool
+# iterations).
 HEADLINE_SPP8_RAYS = 14_871_501
 # Half of 21.50 Mray/s, NVIDIA H100 80GB HBM3, 700.00 W.
 HEADLINE_FLOOR_RAYS_PER_SEC = 10.75e6
