@@ -5,29 +5,43 @@ alone beside its roofline bound.
 
     python chip_smoke.py
 
-Needs a CUDA device (and nvcc). Ten entries, each at 262,144 rays or rows:
+Needs a CUDA device (and nvcc). Thirteen entries, each at 262,144 rays,
+rows or lanes:
 the small kernel's closest and any-hit entries on the Cornell box (Cornell
 camera rays and random rays inside the box, about a quarter of the lanes
 parked as the integrator parks dead lanes: origin 1e6, direction +x); the
 shortlist kernel's on the 12,580-triangle torus stand-in and the tiled and
 cluster kernels' on the 1,116-triangle band stand-in (the same rays
 unparked); any-hit cutoffs around the nearest hit, 0 on every seventh lane;
-the gathers' segment sum of 262,144 rows into a [5, 3] and a [5] table.
+the gathers' segment sum of 262,144 rows into a [5, 3] and a [5] table;
+the bounce kernels of the fit's path replay on the ``cornell_fit_512``
+cell's 262,144 lanes (one wave of 512^2 camera rays, depth 17): the shade
+and finish kernels at the wave's second bounce, the adjoint over the wave's
+17 records.
 
 - Checks: closest t bit-equal, ids equal on hit lanes and -1 on misses (the
   small kernel's normals and materials equal), any-hit flags equal, against
   the plain version and the brute sweep; the segment sum within SUM_RTOL of
-  each element's sum of |terms| of the float64 sum. A wrong answer raises.
+  each element's sum of |terms| of the float64 sum; the bounce kernels
+  against their torch twin (``ops/path_replay.py``): the shade and finish
+  kernels through the wave they make, its radiance, rays and records
+  bit-equal to the twin's, the adjoint's rows within BOUNCE_RTOL of each
+  field's largest row of the twin's on the same records. A wrong answer
+  raises.
 - Launches in one run of its cell, every count set to 0 just before: regen
   renders at 512^2, depth 17 of the Cornell box at spp 16 (``auto``: small),
   the torus at spp 4 (``auto``: shortlist), the band at spp 4 (``pallas``:
   tiled; ``cluster``: cluster); one eager training step of the
-  ``cornell_fit_512`` cell's shape (small, segment sum). Each launches its
-  cell's kernels and no other.
+  ``cornell_fit_512`` cell's shape (small, bounce, segment sum). Each
+  launches its cell's kernels and no other.
 - Time: GRAPH_CALLS calls as one CUDA graph, replays timed by events (a
   wrapper takes longer on the host than its kernel on the card); the plain
-  version's by events around PLAIN_CALLS calls. The bound: ``roofline.py``'s
-  for the intersection calls, the bytes moved at 3.35 TB/s for the sum.
+  version's by events around PLAIN_CALLS calls (the bounce kernels': one
+  bounce of the twin, ``_bounce_plain``, and its adjoint). The finish
+  kernel updates its lanes in place: each of its calls first restores them,
+  and a graph of the restores alone is subtracted. The bound:
+  ``roofline.py``'s for the intersection calls, the bytes moved at 3.35 TB/s
+  for the sum and the bounce kernels (``BOUNCE_BYTES``).
 - ptxas's registers and spilled bytes from this process's build (null when
   an earlier process built the library).
 
@@ -49,6 +63,16 @@ import torch
 N_RAYS = 1 << 18
 GRAPH_CALLS, ROUNDS, PLAIN_CALLS = 100, 5, 3
 SUM_RTOL = 1e-5
+BOUNCE_RTOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12
+# Bytes per lane each bounce kernel must move (csrc/bounce.cu): shade reads
+# o, d (24), flags (1), t and the small kernel's int32 id (8), the pixel and
+# sample ids (16) and writes the shadow ray (28); finish reads o, d, beta,
+# radiance (48), flags, t, id, the occlusion flag (10), the ids (16) and
+# writes the state (49) and its record (40); the adjoint reads dL/dradiance
+# (12) and per bounce a record (40) and writes its rows (52), at the cell's
+# depth of 17.
+BOUNCE_BYTES = {"shade": 77, "finish": 163, "adjoint": 12 + 17 * 92}
 BAND = (30, 18)  # torus_cornell_mesh's arguments of the band stand-in
 # family -> (its CUDA source, the JAX kernel it stands in for)
 SOURCES = {
@@ -57,6 +81,7 @@ SOURCES = {
     "tiled": ("intersect_tiled.cu", "pathtracer_tpu/ops/intersect_pallas.py:120"),
     "cluster": ("intersect_cluster.cu", "pathtracer_tpu/ops/intersect_cluster.py:182"),
     "gather_backward": ("gather_backward.cu", None),
+    "bounce": ("bounce.cu", None),
 }
 
 
@@ -239,8 +264,76 @@ def segment_sum_entries(dev, n: int = N_RAYS) -> list:
             "name": f"gather_backward_sum_{'x'.join(map(str, shape))}",
             "family": "gather_backward", "entry": "sum",
             "call": lambda grad=grad, shape=shape: segment_sum(grad, ids, shape),
-            "refs": [plain], "error": error, "bound": (nbytes / 3.35e12 * 1e3, "bytes")})
+            "refs": [plain], "error": error, "bound": (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")})
     return out
+
+
+def bounce_entries(dev, n: int = N_RAYS) -> list:
+    """The three bounce kernels, as ``intersection_entries``; the finish
+    entry's ``baseline`` is the restore its timing subtracts."""
+    from pathtracer_tpu_torch.models.procedural import cornell_box_camera, cornell_box_scene
+    from pathtracer_tpu_torch.models.scene import RenderSettings
+    from pathtracer_tpu_torch.ops import path_replay, rng
+    from pathtracer_tpu_torch.ops.camera_rays import generate_rays, ray_frame_tensors
+
+    scene = cornell_box_scene(device=dev)[0]
+    st = RenderSettings(width=512, height=512, samples_per_pixel=1, max_depth=17)
+    pix = torch.arange(n, device=dev)
+    smp = torch.full_like(pix, 1)
+    frame = ray_frame_tensors(cornell_box_camera(), 512, 512, dev)
+    o, d = generate_rays(frame, 512, 512, pix, rng.pixel_jitter(st, pix, smp))
+    g = torch.randn((n, 3), generator=torch.Generator().manual_seed(5)).to(dev)
+    with torch.no_grad():
+        wave = path_replay.record_kernels(scene, st, o, d, pix, smp)
+        twin = path_replay.record_plain(scene, st, o, d, pix, smp)
+
+    def wave_error(got, ref):
+        (rad, rays, rec), (rad_p, rays_p, rec_p) = wave, twin
+        assert torch.equal(rad, rad_p) and int(rays) == int(rays_p), "the wave's radiance"
+        assert all(torch.equal(a, b) for a, b in zip(rec, rec_p)), "the wave's records"
+        return 0.0
+
+    def rows_error(got, ref):
+        for a, b in zip(got, ref):
+            assert ((a - b).abs().max() <= BOUNCE_RTOL * b.abs().max()).item(), "adjoint rows"
+        return max(float((a - b).abs().max()) for a, b in zip(got, ref))
+
+    # the second bounce's inputs
+    lanes = path_replay.KernelWave(scene, st, o, d, pix, smp)
+    lanes.bounce(0)
+    t, tri = lanes.closest()
+    lanes.shade(1, t, tri)
+    occ = lanes.occluded()
+    state = [lanes.o, lanes.d, lanes.beta, lanes.rad, lanes.flags]
+    saved = [x.clone() for x in state]
+
+    def restore():
+        for x, y in zip(state, saved):
+            x.copy_(y)
+
+    def finish():
+        restore()
+        lanes.finish(1, t, tri, occ)
+
+    def twin_bounce():
+        alive, spec = (saved[4] & 1) == 1, (saved[4] & 2) == 2
+        return path_replay._bounce_plain(scene, st, *saved[:4], alive, spec, pix, smp, 1)
+
+    rec = twin[2]
+    needs = (True,) * 4
+    bound = {k: (v * n / HBM_BYTES_PER_S * 1e3, "bytes") for k, v in BOUNCE_BYTES.items()}
+    return [
+        {"name": "bounce_shade", "family": "bounce", "entry": "shade",
+         "call": lambda: lanes.shade(1, t, tri), "refs": [twin_bounce], "error": wave_error,
+         "bound": bound["shade"]},
+        {"name": "bounce_finish", "family": "bounce", "entry": "finish", "call": finish,
+         "baseline": restore, "refs": [twin_bounce], "error": wave_error,
+         "bound": bound["finish"]},
+        {"name": "bounce_adjoint", "family": "bounce", "entry": "adjoint",
+         "call": lambda: path_replay.adjoint_kernel(scene, st, rec, g, needs),
+         "refs": [lambda: path_replay.adjoint_plain(scene, st, rec, g)], "error": rows_error,
+         "bound": bound["adjoint"]},
+    ]
 
 
 def check(entry) -> float:
@@ -294,8 +387,9 @@ def cell_launches(dev) -> dict:
     target = torch.full((512 * 512, 3), 0.5, device=dev)
     step_counts = counted(lambda: step(params, cornell, frame, target, pixel,
                                        torch.zeros_like(pixel), torch.ones_like(pixel)),
-                          ["small", "gather_backward"])
+                          ["small", "bounce", "gather_backward"])
     out["gather_backward"] = step_counts["gather_backward"]
+    out["bounce"] = step_counts["bounce"]
     return out
 
 
@@ -319,6 +413,8 @@ def kernel_patterns(entry) -> list:
     """Substrings of the mangled names of the kernels ``entry`` launches."""
     if entry["family"] == "gather_backward":
         return ["segment_sum_partialIlE", "segment_sum_finish"]
+    if entry["family"] == "bounce":
+        return [f"bounce_{entry['entry']}_kernel"]
     return [f"{entry['family']}_kernelILb{int(entry['entry'] == 'occluded')}E"]
 
 
@@ -329,7 +425,7 @@ def main() -> int:
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    entries = intersection_entries(dev) + segment_sum_entries(dev)
+    entries = intersection_entries(dev) + segment_sum_entries(dev) + bounce_entries(dev)
     errors = {e["name"]: check(e) for e in entries}
     print(f"checked {len(errors)} entries against their references", flush=True)
     launches = cell_launches(dev)
@@ -337,6 +433,8 @@ def main() -> int:
     rows = []
     for e in entries:
         ms, plain_ms = graph_ms(e["call"]), event_ms(e["refs"][0])
+        if "baseline" in e:
+            ms -= graph_ms(e["baseline"])
         bound, by = e["bound"]
         found = [v for name, v in regs.items() if any(p in name for p in kernel_patterns(e))]
         source, replaces = SOURCES[e["family"]]

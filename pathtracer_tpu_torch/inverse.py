@@ -9,7 +9,9 @@ drawing the same decisions again from the counter-based RNG instead of
 storing them. The forward pass and the replay trace their rays through the
 same intersection kernels as a render does. The kernels have no backward and
 need none: the gradients reach the materials through gathers by material id
-(``ops.intersect.material_lookup``, ``ops.lights``).
+(``ops.intersect.material_lookup``, ``ops.lights``). On a card, for the
+settings ``ops.path_replay.covers``, each wave is ``path_replay.RadianceWave``
+instead: the bounce and its replay as CUDA kernels, with the same radiance.
 
 Discrete path structure (hit ids, RR survival, lobe choices, sampled
 directions) receives no gradient, as in any path-replay estimator; gradients

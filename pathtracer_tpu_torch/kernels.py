@@ -44,6 +44,9 @@ _SIGNATURES = {
     "pt_cluster_occluded": ([_P, _P, _P, _P, _P, _I, _I, _P, _P, _P], _I),
     "pt_segment_sum_blocks": ([_I, _I, _I], _I),
     "pt_segment_sum": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+    "pt_bounce_shade": ([_P] * 6 + [_I] + [_P] * 2 + [_I] * 2 + [_P] * 4, _I),
+    "pt_bounce_finish": ([_P] * 8 + [_I] + [_P] * 3 + [_I] * 3 + [_P] * 5, _I),
+    "pt_bounce_adjoint": ([_P] * 5 + [_I] * 2 + [_P] * 5, _I),
     "pt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -146,19 +149,21 @@ def check(rc: int, what: str) -> None:
 
 def launch_counts() -> dict:
     """Every kernel's launch counts by family: the intersection kernels'
-    ``{"closest": n, "occluded": n}``, the gather backward's ``{"sum": n}``
-    (the wrappers count where they launch their kernel)."""
+    ``{"closest": n, "occluded": n}``, the gather backward's ``{"sum": n}``,
+    the bounce's ``{"shade": n, "finish": n, "adjoint": n}`` (the wrappers
+    count where they launch their kernel)."""
     from pathtracer_tpu_torch.ops import (
         gather,
         intersect_cluster,
         intersect_shortlist_kernel,
         intersect_small,
         intersect_tiled,
+        path_replay,
     )
 
     return {"small": intersect_small.launches, "shortlist": intersect_shortlist_kernel.launches,
             "tiled": intersect_tiled.launches, "cluster": intersect_cluster.launches,
-            "gather_backward": gather.launches}
+            "gather_backward": gather.launches, "bounce": path_replay.launches}
 
 
 def reset_launches() -> None:

@@ -20,7 +20,9 @@ under ``torch.utils.checkpoint``, the counterpart of the JAX package's
 bounce's inputs; the backward pass replays the bounce from them, and the
 counter RNG draws the same decisions again. The replay traces its rays
 through the same intersection kernels as the forward pass. A render whose
-scene needs no gradient runs the bounces as they are.
+scene needs no gradient runs the bounces as they are. On CUDA, for the
+settings ``ops.path_replay.covers``, a wave's bounces and their replay are
+hand-written kernels instead (``path_replay.RadianceWave``).
 """
 
 from __future__ import annotations
@@ -256,15 +258,22 @@ def radiance_batch_stats(scene, settings, o, d, pixel_ids, sample_ids):
     while the stream is being captured into a CUDA graph every bounce runs.
     With grad enabled and a scene tensor requiring grad, each bounce runs
     under ``torch.utils.checkpoint`` (path replay, see the module
-    docstring).
+    docstring), unless ``path_replay.covers`` the scene and settings: then
+    the wave is ``path_replay.RadianceWave``, the bounce and its adjoint as
+    CUDA kernels, every bounce run.
     """
+    replay = torch.is_grad_enabled() and any(
+        getattr(scene, f).requires_grad for f in TENSOR_FIELDS)
+    if replay:
+        from pathtracer_tpu_torch.ops import path_replay
+
+        if path_replay.covers(scene, settings):
+            return path_replay.radiance_wave(scene, settings, o, d, pixel_ids, sample_ids)
     beta = torch.ones_like(o)
     radiance = torch.zeros_like(o)
     alive = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
     spec = torch.zeros_like(alive)
     n_rays = torch.zeros((), dtype=torch.int64, device=o.device)
-    replay = torch.is_grad_enabled() and any(
-        getattr(scene, f).requires_grad for f in TENSOR_FIELDS)
     for depth in range(settings.max_depth):
         args = (scene, settings, o, d, beta, radiance, alive, spec,
                 pixel_ids, sample_ids, depth)

@@ -31,6 +31,16 @@ def sample_triangle_barycentric(u1, u2):
     return b0, b1
 
 
+def emissive_cdf(scene):
+    """(cdf [E], total area, 0-dim) of the area estimator's triangle
+    choice; the padded entries add no area."""
+    e_pad = scene.emissive_tri.shape[0]
+    idx_valid = torch.arange(e_pad, device=scene.emissive_area.device) < scene.num_emissive
+    areas = torch.where(idx_valid, scene.emissive_area, 0.0)
+    total = torch.clamp(torch.sum(areas), min=1e-20)
+    return torch.cumsum(areas, dim=0) / total, total
+
+
 def _choose_emissive(scene, x, u_choice, compat_count_pdf: bool):
     """Pick an emissive-table index per lane -> (j [B] i64, weight [B])."""
     n_emissive = max(scene.num_emissive, 1)
@@ -39,11 +49,7 @@ def _choose_emissive(scene, x, u_choice, compat_count_pdf: bool):
         j = torch.clamp((u_choice * n_f).to(torch.int64), max=n_emissive - 1)
         weight = torch.full((x.shape[0],), 1.0, dtype=x.dtype, device=x.device) / n_f
     else:
-        e_pad = scene.emissive_tri.shape[0]
-        idx_valid = torch.arange(e_pad, device=x.device) < scene.num_emissive
-        areas = torch.where(idx_valid, scene.emissive_area, 0.0)
-        total = torch.clamp(torch.sum(areas), min=1e-20)
-        cdf = torch.cumsum(areas, dim=0) / total
+        cdf, total = emissive_cdf(scene)
         j = torch.searchsorted(cdf, u_choice.contiguous(), right=True)
         j = torch.clamp(j, max=n_emissive - 1)
         weight = torch.full((x.shape[0],), 1.0, dtype=x.dtype, device=x.device) * total

@@ -24,13 +24,16 @@ ranges):
   Python, so the spans below do not open for the kernels it launches;
 - ``pt.bounce``: one bounce, ``ops.integrator.bounce_core``; under path
   replay it runs in the forward pass and again, on the autograd engine's
-  thread, in the backward pass;
+  thread, in the backward pass. Where ``ops.path_replay`` runs the wave by
+  its kernels, one bounce's four launches, and in the backward the
+  adjoint's one;
 - ``pt.intersect``: one intersection call, ``ops.intersect.closest_hit``
   (with its material lookup) or ``occluded_before``: the wrapper's torch ops
   and its kernel;
 - ``pt.gather_backward``: the backward of a material gather
   (``ops.gather.gather_rows``), summing the path gradients into the material
-  rows; it runs on the autograd engine's thread;
+  rows, or ``ops.path_replay``'s sums of the adjoint's rows; it runs on the
+  autograd engine's thread;
 - ``pt.sync``: one host wait for the device that the program makes on
   purpose: ``bool(torch.any(alive))`` after each bounce of
   ``ops.integrator.radiance_batch_stats`` (not while a CUDA graph is being

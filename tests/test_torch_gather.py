@@ -69,7 +69,7 @@ def test_launch_counts_include_the_gather_backward(monkeypatch):
     monkeypatch.setitem(gather.launches, "sum", 3)
     counts = kernels.launch_counts()
     assert counts["gather_backward"] is gather.launches
-    assert set(counts) == {"small", "shortlist", "tiled", "cluster", "gather_backward"}
+    assert set(counts) == {"small", "shortlist", "tiled", "cluster", "gather_backward", "bounce"}
     saved = {f: dict(c) for f, c in counts.items()}
     try:
         kernels.reset_launches()
