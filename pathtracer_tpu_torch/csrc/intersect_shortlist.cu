@@ -33,10 +33,11 @@
 //  3. Walk, per warp, without further barriers: at each cluster in key order a
 //     lane recomputes its own entry from the box (one ~20-flop slab test) and
 //     needs the cluster only if that entry is below its own best t (the TPU
-//     kernel's exact per-ray cull, Pallas :235-239, applied per ray). A warp
-//     skips a cluster no lane needs (__any_sync) and stops at the first key
-//     that no live lane's best t admits: every later key, and so every later
-//     entry of its lanes, is at least as large. For a cluster it needs:
+//     kernel's per-ray cull, Pallas :235-239, applied per ray and widened as
+//     under Exactness below). A warp skips a cluster no lane needs
+//     (__any_sync) and stops at the first key that no live lane's best t
+//     admits: every later key, and so every later entry of its lanes, is at
+//     least as large. For a cluster it needs:
 //     - dense (at least kDenseLanes lanes need it): every lane tests the 128
 //       rows in id order against its own ray, the rows read as broadcasts;
 //     - sparse (fewer): the needing rays one at a time, each tested by the
@@ -75,7 +76,13 @@
 // Exactness. hit_triangle and the slab test are ray_triangle.cuh's, shared
 // with the other kernels and built with -fmad=false; the slab keeps the JAX
 // formulas and NaN propagation. Both sweeps compute t with the same
-// hit_triangle, so t is bit-equal whichever runs.
+// hit_triangle, so t is bit-equal whichever runs. Culling only drops tests,
+// so it must never drop a cluster that holds a ray's answer: the root test,
+// the keys and the walk all take needed_entry, the tiled walk's box test
+// widened by kSlack (ray_triangle.cuh). An exact slab test dropped camera
+// rays that meet a flat wall's box at its edge, where the slab interval comes
+// out empty by a few ulps while Moller-Trumbore accepts the wall's triangle.
+// An extra cluster costs tests, never a different t or id.
 //
 // What bounds it on the card: operations, issued per warp. Per needed (ray,
 // cluster), 4 Moller-Trumbore tests a lane (46 flops and an IEEE division
@@ -109,14 +116,6 @@ __host__ __device__ constexpr int pow2_at_least(int c) {
   int p = 1;
   while (p < c) p <<= 1;
   return p;
-}
-
-// A lane at best t `best` needs a box entered at `e`: closest lanes also take
-// e == best (a later cluster may hold an equal t at a smaller id); in any-hit
-// mode only a hit strictly before the cutoff counts.
-template <bool kAnyHit>
-__device__ __forceinline__ bool improvable(float e, float best) {
-  return kAnyHit ? e < best : (e <= best && e < INFINITY);
 }
 
 // Row j of a cluster's rows: the 12 floats v0.xyz e1.xyz e2.xyz valid id
@@ -234,10 +233,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     t0 = kAnyHit ? t_cut[r] : INFINITY;
   }
   const float inv[3] = {inv_dir(ray.dx), inv_dir(ray.dy), inv_dir(ray.dz)};
-  float t_near, t_far;
-  slab(bounds + 6 * static_cast<int64_t>(c), ray, inv, t_near, t_far);
-  const bool reach = live && t_far >= t_near && t_far > 0.0f &&
-                     nan_max(t_near, 0.0f) < t0;
+  const bool reach =
+      live && needed_entry<kAnyHit>(bounds + 6 * static_cast<int64_t>(c), ray, inv, t0) < INFINITY;
   float best = t0;
   int best_id = -1;
 
@@ -248,8 +245,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     // Entries are >= 0 (or -0, masked to +0), and non-negative floats order as
     // their bits; a lane that cannot use the box before its cutoff adds +inf.
     for (int k = 0; k < c; ++k) {
-      const float e = box_enter(bounds + 6 * static_cast<int64_t>(k), ray, inv);
-      const unsigned bits = live && e < t0 ? __float_as_uint(e) & 0x7fffffffu : kInfBits;
+      const float e = needed_entry<kAnyHit>(bounds + 6 * static_cast<int64_t>(k), ray, inv, t0);
+      const unsigned bits = live && e < INFINITY ? __float_as_uint(e) & 0x7fffffffu : kInfBits;
       const unsigned m = __reduce_min_sync(kFull, bits);
       if (lane == 0 && m < kInfBits)
         atomicMin(&order[k], static_cast<unsigned long long>(m) << 32 | k);
@@ -273,11 +270,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int i = 0; i < c; ++i) {
       const unsigned long long key = order[i];
       const float kmin = __uint_as_float(static_cast<unsigned>(key >> 32));
-      if (!(kmin < INFINITY) || !__any_sync(kFull, live && improvable<kAnyHit>(kmin, best)))
+      if (!(kmin < INFINITY) ||
+          !__any_sync(kFull, live && improvable<kAnyHit>(kmin, best)))
         break;
       const int k = static_cast<int>(key & 0xffffffffu);
-      const float e = box_enter(bounds + 6 * static_cast<int64_t>(k), ray, inv);
-      bool need = live && improvable<kAnyHit>(e, best);
+      bool need = live &&
+                  needed_entry<kAnyHit>(bounds + 6 * static_cast<int64_t>(k), ray, inv, best) <
+                      INFINITY;
       if (!__any_sync(kFull, need)) continue;
 
       const float4* rows = table4 + static_cast<int64_t>(k) * kCluster * kRow4;

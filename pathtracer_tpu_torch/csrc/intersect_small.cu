@@ -86,7 +86,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 2048 / kThreads;  // ask ptxas for 64 resident warps
 constexpr int kMaxRows = 256;                // SMALL_MAX_T8
 constexpr int kRowFloats = 10;               // v0.xyz e1.xyz e2.xyz and a pad
-constexpr float kSlack = 1.0f / 4096;        // the tiled kernel's widening
 constexpr unsigned kFull = 0xffffffffu;
 
 // What every lane reads alike, carried in the launch's parameters.
@@ -110,8 +109,8 @@ __device__ __forceinline__ bool needs_sweep(const float* box, const Ray& ray, fl
                                             bool want_any) {
   if (kAnyHit && !want_any && !(cut > kEps)) return false;
   const float inv[3] = {inv_dir(ray.dx), inv_dir(ray.dy), inv_dir(ray.dz)};
-  const float e = box_enter_widened(box, ray, inv, kSlack);
-  return improvable<kAnyHit>(e, kAnyHit && !want_any ? cut : INFINITY, kSlack);
+  const float e = box_enter_widened(box, ray, inv);
+  return improvable<kAnyHit>(e, kAnyHit && !want_any ? cut : INFINITY);
 }
 
 // Closest result of ray r: the winner `best` (a row, -1 for a miss) at best_t.

@@ -100,26 +100,23 @@ __device__ __forceinline__ void slab(const float* box, const Ray& r,
   }
 }
 
-// Slab entry distance of a ray to a box as the cull compares it: max(t_near,
-// 0) where the box is hit (t_far >= t_near, t_far > 0, and lo.x <= hi.x, false
-// for an empty box whose lo = 3e38 > hi = -3e38), +inf elsewhere.
-__device__ __forceinline__ float box_enter(const float* box, const Ray& r,
-                                           const float inv[3]) {
-  float t_near, t_far;
-  slab(box, r, inv, t_near, t_far);
-  const bool ok = t_far >= t_near && t_far > 0.0f && box[0] <= box[3];
-  return ok ? nan_max(t_near, 0.0f) : INFINITY;
-}
+// The widening of every kernel's box cull: the slab entry and the
+// Moller-Trumbore t round differently, so a cull that compared them exactly
+// could drop a box holding an accepted hit (a ray that meets a flat box at its
+// edge, where the slab interval comes out empty by a few ulps).
+constexpr float kSlack = 1.0f / 4096;
 
-// The same entry, widened for a cull that must never drop a box holding an
-// accepted hit: the slab entry and the Moller-Trumbore t round differently,
-// so an interval empty by less than `slack` of the entry counts as entered.
+// Slab entry distance of a ray to a box as a cull compares it, widened so that
+// a box holding an accepted hit is never dropped: max(t_near, 0) where the
+// slab interval [that entry, t_far] is empty by less than kSlack of the entry
+// and t_far > 0, and lo.x <= hi.x (false for an empty box, whose lo = 3e38 >
+// hi = -3e38); +inf elsewhere.
 __device__ __forceinline__ float box_enter_widened(const float* box, const Ray& r,
-                                                   const float inv[3], float slack) {
+                                                   const float inv[3]) {
   float t_near, t_far;
   slab(box, r, inv, t_near, t_far);
   const float e = nan_max(t_near, 0.0f);
-  const bool ok = t_far >= e * (1.0f - slack) && t_far > 0.0f && box[0] <= box[3];
+  const bool ok = t_far >= e * (1.0f - kSlack) && t_far > 0.0f && box[0] <= box[3];
   return ok ? e : INFINITY;
 }
 
@@ -128,9 +125,19 @@ __device__ __forceinline__ float box_enter_widened(const float* box, const Ray& 
 // entries equal to best (a later box may hold an equal t at a smaller id);
 // any-hit lanes only a hit strictly before the bound.
 template <bool kAnyHit>
-__device__ __forceinline__ bool improvable(float e, float best, float slack) {
-  const float s = e * (1.0f - slack);
+__device__ __forceinline__ bool improvable(float e, float best) {
+  const float s = e * (1.0f - kSlack);
   return kAnyHit ? s < best : (s <= best && e < INFINITY);
+}
+
+// The one box test of a cull: the widened entry `e` of a box where a lane at
+// bound `best` needs it (box_enter_widened and improvable), +inf where it does
+// not.
+template <bool kAnyHit>
+__device__ __forceinline__ float needed_entry(const float* box, const Ray& r,
+                                              const float inv[3], float best) {
+  const float e = box_enter_widened(box, r, inv);
+  return improvable<kAnyHit>(e, best) ? e : INFINITY;
 }
 
 }  // namespace

@@ -56,7 +56,6 @@ constexpr int kRow4 = kCols / 4;             // float4s per table row
 // threshold: 128 row tests cost the warp about as much as 28 rays' 4 tests
 // and argmin).
 constexpr int kDenseLanes = 28;
-constexpr float kSlack = 1.0f / 4096;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Row j of a tile's rows: the 12 floats v0.xyz e1.xyz e2.xyz valid id n.x in
@@ -173,8 +172,8 @@ __device__ __forceinline__ void visit(const float4* __restrict__ table4,
                                       const float* __restrict__ bounds, int k,
                                       const Ray& ray, const float inv[3], bool live,
                                       int lane, Lane& s) {
-  const float e = box_enter_widened(bounds + 6 * static_cast<int64_t>(k), ray, inv, kSlack);
-  const bool need = live && improvable<kAnyHit>(e, s.best, kSlack);
+  const float e = box_enter_widened(bounds + 6 * static_cast<int64_t>(k), ray, inv);
+  const bool need = live && improvable<kAnyHit>(e, s.best);
   const unsigned needing = __ballot_sync(kFull, need);
   if (!needing) return;
   const float4* rows = table4 + static_cast<int64_t>(k) * kTile * kRow4;
@@ -212,9 +211,9 @@ __device__ __forceinline__ void trace_ray(const float* __restrict__ o,
     }
   }
   const float inv[3] = {inv_dir(ray.dx), inv_dir(ray.dy), inv_dir(ray.dz)};
-  const float root = box_enter_widened(bounds + 6 * static_cast<int64_t>(c), ray, inv, kSlack);
+  const float root = box_enter_widened(bounds + 6 * static_cast<int64_t>(c), ray, inv);
 
-  if (__any_sync(kFull, live && improvable<kAnyHit>(root, s.best, kSlack))) {
+  if (__any_sync(kFull, live && improvable<kAnyHit>(root, s.best))) {
     for (int k = 0; k < c; ++k) visit<kAnyHit>(table4, bounds, k, ray, inv, live, lane, s);
   }
 

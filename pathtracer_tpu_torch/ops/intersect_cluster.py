@@ -10,9 +10,11 @@ clusters are visited in index order; a cluster is swept only if some ray of
 the group enters its box before that ray's best ``t``, and then every ray of
 the group sweeps all its triangles with a strict ``<`` on ``t`` in id order.
 The slab math is JAX's: the sign-preserving ``1/max(|w|, 1e-12)``, ``enter =
-max(t_near, 0)``, a box hit needs ``t_far >= t_near``, ``t_far > 0`` and
-``lo <= hi`` (false for a cluster of padding only), bounds clamped to
-+-3e38.
+max(t_near, 0)``, a box hit needs ``t_far > 0`` and ``lo <= hi`` (false for a
+cluster of padding only), bounds clamped to +-3e38; but where JAX needs
+``t_far >= t_near`` and ``enter < best``, the port widens both by ``SLACK``
+(``intersect_shortlist.enter_dists`` and ``before``, the kernels' rule), so
+that a ray meeting a flat box at its edge still sweeps it.
 
 The kernel (``csrc/intersect_cluster.cu``) computes the same function, the
 brute sweep's nearest ``t`` with the smallest id among equal ``t``, another
@@ -75,7 +77,7 @@ def closest_tri_cluster_plain(scene, o, d, cluster: int = CLUSTER, group: int = 
     valid = shortlist._pad(scene.tri_valid, tp)
     for k in range(lo.shape[0]):
         enter = shortlist.enter_dists(o, d, lo[k : k + 1], hi[k : k + 1])[:, 0]
-        live = (enter < best).reshape(ng, group).any(dim=1)
+        live = shortlist.before(enter, best).reshape(ng, group).any(dim=1)
         if not bool(live.any()):
             continue
         rows = torch.nonzero(live.repeat_interleave(group)).squeeze(1)

@@ -11,12 +11,15 @@ Algorithm (exact: ``t`` is bit-equal to ``intersect.closest_tri_brute``):
 2. Every ray slab-tests every cluster box; only the minimum entry distance
    over each ``block`` of rays is kept, [NB, C].
 3. Rounds: each block takes the ``k`` nearest unvisited clusters whose
-   block-min entry lies before the block's largest best ``t`` (a cull that
-   is exact: min_b enter >= max_b best_t implies enter >= best_t for every
-   ray), sweeps their triangles in 128-wide tiles with the Moller-Trumbore
-   of ``ops.intersect`` (so ``t`` rounds as the brute sweep's), keeps the
-   min id within a tile, and improves each ray's best by a strict ``<``:
-   across tiles the first-visited triangle wins ties.
+   block-min entry lies before the block's largest best ``t`` (``before``;
+   a cull that is exact: a block-min entry too late for the block's
+   largest best ``t`` is too late for every ray of the block; the entry and
+   the comparison are widened by ``SLACK``, as every cull of the port is,
+   so that a cluster holding a hit that the slab test rounds away at a flat
+   box's edge is still swept), sweeps their triangles in 128-wide tiles with
+   the Moller-Trumbore of ``ops.intersect`` (so ``t`` rounds as the brute
+   sweep's), keeps the min id within a tile, and improves each ray's best
+   by a strict ``<``: across tiles the first-visited triangle wins ties.
 4. The loop ends when no block has an improvable cluster left: one host
    check per round.
 
@@ -33,6 +36,10 @@ EPS_TRI = 1e-8
 INF = float("inf")
 _BIG_F = 3.0e38
 _BIG_ID = 1.0e9  # > any triangle id; ids are exact in f32 (< 2^24)
+# The widening of every box cull of the port (kSlack in csrc/ray_triangle.cuh):
+# the slab entry and the Moller-Trumbore t round differently, so a cull that
+# compared them exactly could drop a box that holds an accepted hit.
+SLACK = 1.0 / 4096
 
 BLOCK = 256  # rays per shortlist decision
 CLUSTER = 32  # triangles per cluster (gather and cull granularity)
@@ -97,8 +104,12 @@ def _inv(w):
 
 
 def enter_dists(o, d, lo, hi):
-    """Slab entry distance of every ray to every box -> [B, C]: +inf on a
-    miss or an empty box (lo > hi); the JAX package's NaN-safe reciprocal."""
+    """Slab entry distance of every ray to every box -> [B, C], as every cull
+    of the port takes it (the kernels' ``box_enter_widened``): ``max(t_near,
+    0)`` where the slab interval is empty by less than ``SLACK`` of that
+    entry and ``t_far > 0``; +inf on a miss or an empty box (lo > hi). The
+    JAX package's NaN-safe reciprocal; its exact test (``t_far >= t_near``)
+    drops rays that meet a flat box at its edge."""
     t_near = torch.full((o.shape[0], lo.shape[0]), -_BIG_F, device=o.device)
     t_far = torch.full((o.shape[0], lo.shape[0]), _BIG_F, device=o.device)
     for ax in range(3):
@@ -107,8 +118,16 @@ def enter_dists(o, d, lo, hi):
         t1 = (hi[None, :, ax] - o[:, ax : ax + 1]) * i
         t_near = torch.maximum(t_near, torch.minimum(t0, t1))
         t_far = torch.minimum(t_far, torch.maximum(t0, t1))
-    ok = (t_far >= t_near) & (t_far > 0.0) & (lo[None, :, 0] <= hi[None, :, 0])
-    return torch.where(ok, torch.clamp(t_near, min=0.0), INF)
+    e = torch.clamp(t_near, min=0.0)
+    ok = (t_far >= e * (1.0 - SLACK)) & (t_far > 0.0) & (lo[None, :, 0] <= hi[None, :, 0])
+    return torch.where(ok, e, INF)
+
+
+def before(e, t):
+    """Whether a box entered at ``e`` (``enter_dists``) may hold a hit
+    strictly before ``t``: the kernels' ``improvable``, widened by
+    ``SLACK``."""
+    return e * (1.0 - SLACK) < t
 
 
 def closest_tri_shortlist(scene, o, d, t_init=None, block: int = BLOCK,
@@ -162,7 +181,7 @@ def closest_tri_shortlist_stats(scene, o, d, t_init=None, block: int = BLOCK,
     ])
 
     def improvable_key(best_t, visited):
-        cull = visited[:, :c] | (min_enter >= best_t.amax(dim=1, keepdim=True))
+        cull = visited[:, :c] | ~before(min_enter, best_t.amax(dim=1, keepdim=True))
         return torch.where(cull, INF, min_enter)
 
     rx, ry, rz = (o[:, j].reshape(nb, block, 1) for j in range(3))

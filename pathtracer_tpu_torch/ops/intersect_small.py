@@ -18,11 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from pathtracer_tpu_torch.ops.intersect_shortlist import _BIG_F, EPS_TRI, _inv
+from pathtracer_tpu_torch.ops.intersect_shortlist import _BIG_F, EPS_TRI, before, enter_dists
 
 SMALL_MAX_T8 = 256  # largest 8-rounded triangle count the kernel serves
-# The kernel's widening of its root-box test (kSlack in csrc/intersect_small.cu).
-SLACK = 1.0 / 4096
 
 # Kernel launches by entry point; only the wrappers below add to it.
 launches = {"closest": 0, "occluded": 0}
@@ -95,26 +93,18 @@ def lanes_to_sweep(scene, o, d, t_cut=None, want_any: bool = False):
     """The lanes the kernel tests at all -> [B] bool, by its rule in torch.
 
     A lane is tested when its ray enters the root box (``small_rows``) before
-    its bound, by the widened slab test of the tiled kernel
-    (``box_enter_widened`` and ``improvable`` of csrc/ray_triangle.cuh with
-    ``SLACK``): closest hit (``t_cut`` None), or any-hit with ``want_any``,
-    +inf; any-hit without, the cutoff, which must also exceed ``EPS_TRI``. The
-    other lanes cannot hit: they get a miss without a test.
+    its bound, by the widened slab test of every cull (``enter_dists`` and
+    ``before`` of ``ops/intersect_shortlist.py``, ``box_enter_widened`` and
+    ``improvable`` of csrc/ray_triangle.cuh): closest hit (``t_cut`` None),
+    or any-hit with ``want_any``, +inf; any-hit without, the cutoff, which
+    must also exceed ``EPS_TRI``. The other lanes cannot hit: they get a miss
+    without a test.
     """
     box = small_rows(scene)[2].to(o.device)
-    t_near = torch.full((o.shape[0],), -_BIG_F, device=o.device)
-    t_far = torch.full((o.shape[0],), _BIG_F, device=o.device)
-    for ax in range(3):
-        i = _inv(d[:, ax])
-        t0 = (box[ax] - o[:, ax]) * i
-        t1 = (box[3 + ax] - o[:, ax]) * i
-        t_near = torch.maximum(t_near, torch.minimum(t0, t1))
-        t_far = torch.minimum(t_far, torch.maximum(t0, t1))
-    e = torch.clamp(t_near, min=0.0)
-    entered = (t_far >= e * (1.0 - SLACK)) & (t_far > 0.0) & (box[0] <= box[3])
+    e = enter_dists(o, d, box[None, :3], box[None, 3:])[:, 0]
     if t_cut is None or want_any:
-        return entered & (e < float("inf"))
-    return entered & (e * (1.0 - SLACK) < t_cut) & (t_cut > EPS_TRI)
+        return e < float("inf")
+    return before(e, t_cut) & (t_cut > EPS_TRI)
 
 
 def _sweep_plain(tab, o, d):

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from pathtracer_tpu_torch.ops.intersect_shortlist import cluster_bounds, enter_dists
+from pathtracer_tpu_torch.ops.intersect_shortlist import before, cluster_bounds, enter_dists
 
 FLOPS_PER_TEST = 46
 PEAK_F32_FLOPS = 67e12
@@ -37,8 +37,9 @@ def tests_needed(scene, o, d, t_stop, occluded=None) -> int:
     """Ray/triangle tests these inputs need.
 
     Closest hit (``occluded`` None): per ray, the valid triangles of every
-    128-triangle cluster whose slab entry is below ``t_stop``, the brute
-    sweep's final ``t`` (inf on a miss). Any-hit (``occluded`` the [B] bool
+    128-triangle cluster whose slab entry is before ``t_stop``, the brute
+    sweep's final ``t`` (inf on a miss), by the kernels' widened cull
+    (``enter_dists`` and ``before``). Any-hit (``occluded`` the [B] bool
     result): an unoccluded ray counts every cluster entered before its
     cutoff ``t_stop``; an occluded ray counts 1.
     """
@@ -49,7 +50,7 @@ def tests_needed(scene, o, d, t_stop, occluded=None) -> int:
     total = torch.zeros((), dtype=torch.int64, device=o.device)
     for s in range(0, o.shape[0], _CHUNK):
         e = enter_dists(o[s : s + _CHUNK], d[s : s + _CHUNK], lo, hi)
-        per_ray = torch.where(e < t_stop[s : s + _CHUNK, None], counts, 0).sum(dim=1)
+        per_ray = torch.where(before(e, t_stop[s : s + _CHUNK, None]), counts, 0).sum(dim=1)
         if occluded is not None:
             per_ray = torch.where(occluded[s : s + _CHUNK], 1, per_ray)
         total += per_ray.sum()

@@ -37,6 +37,8 @@ from pathtracer_tpu_torch.ops import intersect_shortlist as twin
 from pathtracer_tpu_torch.ops import intersect_shortlist_kernel as shortlist
 from pathtracer_tpu_torch.ops import intersect_small as small
 from pathtracer_tpu_torch.ops import intersect_tiled as tiled
+from pathtracer_tpu_torch.ops.camera_rays import generate_rays, ray_frame_tensors
+from pathtracer_tpu_torch.ops.rng import pixel_jitter_hash
 from pathtracer_tpu_torch.render import render_stats
 
 pytestmark = pytest.mark.gpu
@@ -156,6 +158,32 @@ def test_shortlist_kernel_takes_more_than_415_clusters(cuda):
     t_cut = torch.where(hit, t_b, 1.0) * 0.8
     occ = shortlist.occluded_tri_shortlist_kernel(scene, o, d, t_cut)
     assert torch.equal(occ, tint._occluded_tri_brute(scene, o, d, t_cut)[0])
+
+
+@pytest.mark.parametrize("sample", [0, 1, 2, 3])
+def test_shortlist_kernel_takes_the_wall_edge_rays(cuda, sample):
+    """The camera waves of the 512^2, 4-spp torus render of seed 4000000073,
+    whose exact cull missed rays that meet a flat wall's box at its edge:
+    sample 0's pixel 227346 hits packed triangle 8 at t = 2.8965704, and
+    every ray of each wave answers as the brute sweep, closest and any-hit
+    (the cull widened by kSlack, csrc/ray_triangle.cuh)."""
+    scene = scene_from_packed(pack_scene(procedural.torus_cornell_mesh()), cuda)
+    assert scene.padded_tris == 12800
+    frame = ray_frame_tensors(procedural.cornell_box_camera(), 512, 512, cuda)
+    pix = torch.arange(512 * 512, device=cuda)
+    jitter = pixel_jitter_hash(pix, torch.full_like(pix, sample), 4000000073)
+    o, d = generate_rays(frame, 512, 512, pix, jitter)
+    t, tri_id = shortlist.closest_tri_shortlist_kernel(scene, o, d)
+    if sample == 0:
+        assert t[227346].item() == 2.8965704441070557 and tri_id[227346].item() == 8
+    t_b, id_b = tint.closest_tri_brute(scene, o, d)
+    hit = torch.isfinite(t_b)
+    assert torch.equal(t, t_b) and torch.equal(tri_id[hit], id_b[hit])
+    assert (tri_id[~hit] == -1).all()
+    for scale in (1.001, 0.999):
+        t_cut = torch.where(hit, t_b, 1.0) * scale
+        occ = shortlist.occluded_tri_shortlist_kernel(scene, o, d, t_cut)
+        assert torch.equal(occ, tint._occluded_tri_brute(scene, o, d, t_cut)[0])
 
 
 def test_shortlist_cluster_limit_is_the_kernels(cuda):

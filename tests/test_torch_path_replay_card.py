@@ -13,7 +13,11 @@ the adjoint kernel's rows against the twin's on one record; the same bits
 on a second run; the launches of an eager, a captured and a replayed
 training step; and a small fit on the band and torus stand-ins through the
 tiled, cluster and shortlist entries against ``bounce_core`` on the same
-route.
+route. On the torus stand-in with a glossy torus (12,800 padded
+triangles, so ``auto`` takes the shortlist) at 64^2 and depth 17 with the
+compat flags, a wave on the shortlist route against the twin and the
+checkpoint, the specular and roughness gradients not nought; and a 512^2
+training step's launches: shortlist entries only.
 """
 
 import dataclasses
@@ -23,10 +27,12 @@ import torch
 
 from pathtracer_tpu_torch import inverse, kernels
 from pathtracer_tpu_torch.models import procedural
+from pathtracer_tpu_torch.models.obj import ObjMaterial
 from pathtracer_tpu_torch.models.pack import pack_scene
 from pathtracer_tpu_torch.models.scene import RenderSettings, scene_from_packed
 from pathtracer_tpu_torch.ops import integrator, path_replay, rng
 from pathtracer_tpu_torch.ops.camera_rays import generate_rays, ray_frame_tensors
+from pathtracer_tpu_torch.ops.intersect import resolve_intersector
 
 pytestmark = pytest.mark.gpu
 
@@ -50,6 +56,15 @@ def cuda():
 
 def _glossy(dev):
     return scene_from_packed(pack_scene(procedural.cornell_box_mesh(glossy_tall_box=True)), dev)
+
+
+def _glossy_stand_in(dev):
+    """The 12,580-triangle torus stand-in (12,800 padded), its torus wearing
+    the glossy box's Phong record (Ns 40, Kd 0.2, Ks 0.6)."""
+    mesh = procedural.torus_cornell_mesh()
+    torus = ObjMaterial(name="torus", Ns=40, illum=2, Kd=(0.2, 0.2, 0.2), Ks=(0.6, 0.6, 0.6))
+    mesh = dataclasses.replace(mesh, materials=mesh.materials[:-1] + [torus])
+    return scene_from_packed(pack_scene(mesh), dev)
 
 
 def _wave(dev, st, seed=3):
@@ -184,3 +199,55 @@ def test_stand_in_fit_takes_the_kernel_path(cuda, case, monkeypatch):
     assert "bounce" not in launched_ref
     assert torch.equal(loss, loss_ref)
     _assert_close(grads, grads_ref)
+
+
+def test_glossy_stand_in_wave_equals_twin_and_checkpoint(cuda, monkeypatch):
+    """The glossy torus stand-in at 64^2, depth 17, compat flags
+    (Ns 40 takes NEE's Phong lobe and the glossy bounce keeps the sticky
+    specular flag): the wave through the shortlist kernel and the bounce
+    kernels, and through its torch twin, against ``bounce_core`` under
+    checkpoint on the same route; ``mat_Ks`` and ``mat_Ns`` gradients are
+    not nought."""
+    scene, st = _glossy_stand_in(cuda), RenderSettings(**SIZE, **FLAGS["compat"])
+    assert resolve_intersector(st, scene) == "shortlist_pallas"
+    wave = _wave(cuda, st)
+    kernels.reset_launches()
+    kern = _run(scene, st, wave, "kernels")
+    counts = kernels.launch_counts()
+    assert counts["small"] == {"closest": 0, "occluded": 0}
+    assert counts["shortlist"] == {"closest": counts["bounce"]["shade"],
+                                   "occluded": counts["bounce"]["finish"]}
+    assert counts["bounce"]["shade"] > 0
+    twin, ref = (_run(scene, st, wave, how, monkeypatch) for how in ("twin", "checkpoint"))
+    assert torch.equal(twin[0], ref[0]) and twin[1] == ref[1]
+    assert torch.equal(kern[0], ref[0]) and kern[1] == ref[1]
+    for got in (kern[2], twin[2]):
+        _assert_close(got, ref[2])
+    assert ref[2]["mat_Ks"].abs().max() > 0 and ref[2]["mat_Ns"].abs().max() > 0
+
+
+def test_glossy_stand_in_512_step_launches_shortlist_only(cuda):
+    """A 512^2 training step on the glossy stand-in, eager then captured: 34
+    closest and 34 any-hit shortlist launches a step and no small kernel,
+    the bounce kernels' 34 / 34 / 2 and the segment sum's 8; a replay adds
+    none."""
+    scene = _glossy_stand_in(cuda)
+    camera = procedural.cornell_box_camera()
+    st = RenderSettings(width=512, height=512, samples_per_pixel=1, max_depth=17)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in inverse.material_params(scene).items()}
+    step = inverse.make_train_step(st, torch.optim.Adam(list(params.values()), lr=0.05))
+    pix = torch.arange(st.width * st.height, device=cuda)
+    frame = ray_frame_tensors(camera, st.width, st.height, cuda)
+    target = torch.full((pix.shape[0], 3), 0.5, device=cuda)
+    kernels.reset_launches()
+    for i, want in enumerate([1, 2, 2]):
+        loss = step(params, scene, frame, target, pix, torch.full_like(pix, 2 * i),
+                    torch.full_like(pix, 2 * i + 1))
+        counts = kernels.launch_counts()
+        assert counts["shortlist"] == {"closest": want * 34, "occluded": want * 34}, (i, counts)
+        assert counts["small"] == {"closest": 0, "occluded": 0}, (i, counts)
+        assert counts["bounce"] == {"shade": want * 34, "finish": want * 34,
+                                    "adjoint": want * 2}, (i, counts)
+        assert counts["gather_backward"] == {"sum": want * 8}, (i, counts)
+        assert torch.isfinite(loss)

@@ -173,16 +173,34 @@ def test_kernel_table_matches_pallas_table(scenes):
 
 
 def test_enter_dists_match_jax(scenes, rays):
+    """The twin's entry is the JAX package's exact slab entry, widened: equal
+    wherever JAX's box test passes, and where only the widened one passes,
+    the slab interval is empty by less than ``SLACK`` of the entry."""
     from pathtracer_tpu.ops.intersect_shortlist import _enter_dists
 
     _, scene = scenes
     o, d, _ = rays
     lo, hi = twin.cluster_bounds(scene, 32)
-    got = twin.enter_dists(torch.as_tensor(o), torch.as_tensor(d), lo, hi)
+    got = twin.enter_dists(torch.as_tensor(o), torch.as_tensor(d), lo, hi).numpy()
     ref = np.asarray(_enter_dists(jnp.asarray(o), jnp.asarray(d),
                                   jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy())))
-    np.testing.assert_array_equal(np.isfinite(got.numpy()), np.isfinite(ref))
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+    hit = np.isfinite(ref)
+    assert hit.any() and (~hit).any()
+    np.testing.assert_array_equal(np.isfinite(got[hit]), True)
+    np.testing.assert_allclose(got[hit], ref[hit], rtol=1e-6, atol=1e-6)
+    # The exact test in float32, the JAX package's formula: where only the
+    # widened test passes, t_far lies within SLACK below the entry.
+    inv = np.where(d >= 0, 1.0, -1.0).astype(np.float32) / np.maximum(np.abs(d), np.float32(1e-12))
+    with np.errstate(over="ignore"):  # the empty boxes' +-3e38 bounds
+        t0 = (lo.numpy()[None] - o[:, None]) * inv[:, None]
+        t1 = (hi.numpy()[None] - o[:, None]) * inv[:, None]
+    t_near = np.maximum(np.minimum(t0, t1).max(axis=2), np.float32(-3e38))
+    t_far = np.minimum(np.maximum(t0, t1).min(axis=2), np.float32(3e38))
+    exact = (t_far >= t_near) & (t_far > 0) & (lo.numpy()[None, :, 0] <= hi.numpy()[None, :, 0])
+    np.testing.assert_array_equal(exact, hit)
+    only_widened = np.isfinite(got) & ~hit
+    e = np.maximum(t_near, np.float32(0.0))[only_widened]
+    assert (t_far[only_widened] >= e * np.float32(1.0 - twin.SLACK)).all()
 
 
 def test_kernel_wrapper_refuses_what_it_cannot_launch(scenes):
@@ -207,7 +225,7 @@ def test_kernel_wrapper_refuses_what_it_cannot_launch(scenes):
 def _numpy_tests_needed(scene, o, d, t_stop, occluded=None):
     """``roofline.tests_needed`` by brute force in numpy: per ray and
     128-triangle cluster, the JAX slab test in float32 against the box of the
-    cluster's valid triangles."""
+    cluster's valid triangles, widened by ``SLACK`` as every cull is."""
     v0, e1, e2 = (getattr(scene, f"tri_{k}").numpy() for k in ("v0", "e1", "e2"))
     valid = scene.tri_valid.numpy()
     total = 0
@@ -225,7 +243,9 @@ def _numpy_tests_needed(scene, o, d, t_stop, occluded=None):
             t0, t1 = (lo - o[r]) * inv, (hi - o[r]) * inv
             t_near = max(np.float32(-3e38), *np.minimum(t0, t1))
             t_far = min(np.float32(3e38), *np.maximum(t0, t1))
-            if t_far >= t_near and t_far > 0 and max(t_near, 0.0) < t_stop[r]:
+            e = max(t_near, np.float32(0.0))
+            e_w = e * np.float32(1.0 - twin.SLACK)
+            if t_far >= e_w and t_far > 0 and e_w < t_stop[r]:
                 need += int(m.sum())
         total += 1 if occluded is not None and occluded[r] else need
     return total
